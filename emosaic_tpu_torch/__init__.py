@@ -1,0 +1,13 @@
+"""emosaic_tpu_torch — the PyTorch/CUDA port of emosaic_tpu.
+
+Runs the default `mosaic` render path (tile analysis, the exact-L1 match
+through the mode-1 LUT or the argmin kernel, the composite, the tint and
+the PNG) on an NVIDIA GPU, with hand-written CUDA kernels under `csrc/`
+for the L1 argmin and the tile composite. `emosaic_tpu` stays the
+reference that this package is tested against.
+
+This file imports nothing: tile-prep workers re-import the package in
+spawned processes and must stay light.
+"""
+
+__version__ = "0.1.0"

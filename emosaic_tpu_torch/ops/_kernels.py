@@ -1,0 +1,122 @@
+"""Build, load and launch the hand-written CUDA kernels under `csrc/`.
+
+Each kernel is one `.cu` file with a plain C interface. It is compiled
+with `nvcc` into a shared library in `emosaic_tpu_torch/_build/` (listed
+in `.gitignore`) at first use, and loaded with `ctypes`. Nothing here
+runs at import time: the CPU tests import every module, and a CPU host
+has no `nvcc`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+class CudaKernel:
+    """One `csrc/<name>.cu` library and its C entry point.
+
+    `launches` counts the calls that launched the kernel; the callers'
+    wrappers are the only place that calls `launch`.
+    """
+
+    def __init__(self, name: str, symbol: str, argtypes: list):
+        self.name = name
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+        self._err = None
+
+    @property
+    def source(self) -> Path:
+        return CSRC / f"{self.name}.cu"
+
+    @property
+    def library(self) -> Path:
+        return BUILD_DIR / f"lib{self.name}.so"
+
+    def build(self, force: bool = False) -> float:
+        """Compile the library if it is missing or older than its source;
+        returns the seconds spent compiling (0.0 when up to date)."""
+        lib = self.library
+        if (
+            not force
+            and lib.exists()
+            and lib.stat().st_mtime >= self.source.stat().st_mtime
+        ):
+            return 0.0
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {self.source.name}:\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, lib)
+        return time.perf_counter() - t0
+
+    def _load(self):
+        if self._fn is None:
+            self.build()
+            so = ctypes.CDLL(str(self.library))
+            fn = getattr(so, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            err = so.emosaic_cuda_error_string
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            self._fn, self._err = fn, err
+        return self._fn
+
+    def launch(self, *args) -> None:
+        """Call the C entry point (it enqueues on the given stream and
+        returns `cudaGetLastError()`); raise on a non-zero code."""
+        fn = self._load()
+        code = fn(*args)
+        if code != 0:
+            msg = self._err(code).decode(errors="replace")
+            raise RuntimeError(f"{self.name} kernel launch failed: {msg} ({code})")
+        self.launches += 1
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+#: csrc/l1_argmin.cu (see ops/distance.py `l1_argmin`)
+L1_ARGMIN = CudaKernel(
+    "l1_argmin",
+    "emosaic_l1_argmin",
+    [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+)
+#: csrc/compose.cu (see ops/composite.py `compose_rows`)
+COMPOSE = CudaKernel(
+    "compose",
+    "emosaic_compose",
+    [_I, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P],
+)
+KERNELS = (L1_ARGMIN, COMPOSE)

@@ -1,0 +1,180 @@
+"""The whole slice: `emosaic_tpu_torch.cli` against `emosaic_tpu.cli`.
+
+Both CLIs run on the CPU on the verify recipe's synthetic scene (a 97x64
+gradient source, 120 noisy 40x40 tiles), each in its own copy of the tile
+directory with its own prepared-tile cache. Output pixels, the stats PNG
+and the analysis cache must be equal. Also: the port reads the JAX
+package's analysis cache, imports neither jax nor emosaic_tpu, refuses
+`--device cuda` without a GPU, and refuses every flag it does not port.
+"""
+
+import io
+import os
+import shutil
+import subprocess
+import sys
+import zipfile
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from emosaic_tpu import cli as jax_cli
+from emosaic_tpu_torch import cli
+from emosaic_tpu_torch.tiles import builder
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module")
+def scene(tmp_path_factory):
+    base = tmp_path_factory.mktemp("scene")
+    tiles = base / "tiles"
+    tiles.mkdir()
+    rng = np.random.default_rng(42)
+    h, w = 64, 97
+    y, x = np.mgrid[0:h, 0:w]
+    src = np.stack(
+        [x * 255 // w, y * 255 // h, (x + y) * 255 // (w + h)], -1
+    ).astype(np.uint8)
+    Image.fromarray(src).save(base / "source.png")
+    for i in range(120):
+        c = rng.integers(0, 256, size=3)
+        img = np.clip(c + rng.normal(0, 30, (40, 40, 3)), 0, 255).astype(np.uint8)
+        Image.fromarray(img).save(tiles / f"t{i:03d}.jpg", quality=90)
+    return base
+
+
+def _run(main, scene, work: Path, args, monkeypatch):
+    """Run one CLI in `work` (a fresh copy of the scene) with relative
+    paths, so both packages store the same tile paths in their caches."""
+    if not work.exists():
+        shutil.copytree(scene, work)
+    monkeypatch.chdir(work)
+    monkeypatch.setenv("XDG_CACHE_HOME", str(work / "xdg"))
+    monkeypatch.setenv("EMOSAIC_PREP_WORKERS", "0")
+    assert main(["-s", "16", "-o", "out.png", "source.png", "mosaic", "tiles", *args]) == 0
+
+
+def _npz_members(path: Path) -> dict:
+    """Name -> bytes of each member of an npz file. The zip headers carry a
+    write time, so the files are compared member by member."""
+    with zipfile.ZipFile(io.BytesIO(path.read_bytes())) as z:
+        return {n: z.read(n) for n in z.namelist()}
+
+
+def _pixels(path: Path) -> np.ndarray:
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+CASES = {
+    "mode1-lut": ["-m", "1"],  # 97x64 = 6208 blocks >= 4096: the LUT
+    "mode1-argmin": ["-m", "1", "--downsample", "2"],  # 1536 blocks: K1's path
+    "mode2": ["-m", "2"],
+    "mode4": ["-m", "4"],
+    "tint": ["-m", "1", "--downsample", "2", "-t", "0.3"],
+    "banded": ["-m", "2", "--stream-threshold", "0"],
+    "banded-tint": ["-m", "1", "--downsample", "2", "-t", "0.5", "--stream-threshold", "0"],
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_cli_matches_jax(scene, tmp_path, monkeypatch, case):
+    args = CASES[case]
+    _run(jax_cli.main, scene, tmp_path / "jax", args, monkeypatch)
+    _run(cli.main, scene, tmp_path / "port", [*args, "--device", "cpu"], monkeypatch)
+    j, p = tmp_path / "jax", tmp_path / "port"
+    np.testing.assert_array_equal(_pixels(p / "out.png"), _pixels(j / "out.png"))
+    tinted = "-t" in args
+    for d in (j, p):  # the tint route returns before the stats
+        assert (d / "out.stats.png").exists() != tinted
+    if not tinted:
+        assert (p / "out.stats.png").read_bytes() == (j / "out.stats.png").read_bytes()
+    (jc,) = (j / "tiles").glob(".emosaic_*to1")
+    pc = p / "tiles" / jc.name
+    assert _npz_members(pc) == _npz_members(jc)
+
+
+def test_port_reads_the_jax_analysis_cache(scene, tmp_path, monkeypatch):
+    work = tmp_path / "shared"
+    _run(jax_cli.main, scene, work, ["-m", "4"], monkeypatch)
+    want = _pixels(work / "out.png")
+    cache = work / "tiles" / ".emosaic_16to1"
+    before = cache.read_bytes()
+    (work / "out.png").unlink()
+
+    def no_analysis(*a, **k):
+        raise AssertionError("the port re-analysed instead of reading the cache")
+
+    monkeypatch.setattr(builder, "generate_tile_set", no_analysis)
+    _run(cli.main, scene, work, ["-m", "4", "--device", "cpu"], monkeypatch)
+    np.testing.assert_array_equal(_pixels(work / "out.png"), want)
+    assert cache.read_bytes() == before
+
+
+def test_port_cli_imports_neither_jax_nor_emosaic_tpu(scene, tmp_path):
+    work = tmp_path / "hygiene"
+    shutil.copytree(scene, work)
+    code = (
+        "import sys\n"
+        "from emosaic_tpu_torch.cli import main\n"
+        "rc = main(['-s', '8', '-o', 'o.png', 'source.png', 'mosaic', 'tiles',"
+        " '-m', '2', '--device', 'cpu'])\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'emosaic_tpu'))\n"
+        "assert rc == 0 and not bad, bad\n"
+        "print('CLEAN')\n"
+    )
+    env = dict(os.environ, XDG_CACHE_HOME=str(work / "xdg"), EMOSAIC_PREP_WORKERS="0")
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(ROOT), env.get("PYTHONPATH")]))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=work, env=env, capture_output=True, text=True
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "CLEAN" in proc.stdout
+    assert (work / "o.png").exists()
+
+
+def test_device_cuda_without_gpu_raises(scene, tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: --device cuda runs instead of raising")
+    work = tmp_path / "nogpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _run(cli.main, scene, work, ["-m", "1", "--device", "cuda"], monkeypatch)
+    assert not (work / "out.png").exists()
+
+
+def test_device_defaults_to_cuda():
+    args = cli.build_parser().parse_args(["x.png", "mosaic", "tiles"])
+    assert args.device == "cuda"
+
+
+@pytest.mark.parametrize(
+    "pre,post",
+    [
+        ([], ["--no-repeat"]),
+        ([], ["--randomize", "10"]),
+        ([], ["-m", "random"]),
+        ([], ["--matcher", "xla"]),
+        ([], ["--matcher", "hybrid"]),
+        ([], ["--metric", "l2"]),
+        ([], ["--mesh", "auto"]),
+        ([], ["--html"]),
+        ([], ["--web"]),
+        (["--profile", "prof"], []),
+    ],
+)
+def test_unported_flags_raise(scene, monkeypatch, pre, post):
+    monkeypatch.chdir(scene)
+    argv = [*pre, "-s", "16", "source.png", "mosaic", "tiles", *post, "--device", "cpu"]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(argv)
+
+
+def test_distributed_env_raises(scene, monkeypatch):
+    monkeypatch.chdir(scene)
+    monkeypatch.setenv("EMOSAIC_DISTRIBUTED", "1")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(["-s", "16", "source.png", "mosaic", "tiles", "--device", "cpu"])

@@ -1,0 +1,68 @@
+"""K1 and K2 against their plain torch versions on an NVIDIA GPU.
+
+A CUDA kernel has no CPU mode, so these tests are marked `cuda` and skip
+on a host without a GPU. This file imports neither jax nor the JAX
+package, so it also runs where jax is not installed:
+
+    python -m pytest --noconftest tests/test_torch_gpu.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from emosaic_tpu_torch.ops import composite, distance
+from emosaic_tpu_torch.ops._kernels import COMPOSE, L1_ARGMIN
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernel under test is CUDA")
+    return torch.device("cuda", 0)
+
+
+def _u8(rng, shape, dev):
+    return torch.from_numpy(rng.integers(0, 256, size=shape, dtype=np.uint8)).to(dev)
+
+
+@pytest.mark.parametrize(
+    "b,l,d", [(1, 3, 3), (300, 513, 12), (70, 100, 200), (17, 5000, 48), (100, 600, 3072)]
+)
+def test_k1_matches_plain(cuda, b, l, d):
+    rng = np.random.default_rng(b * 7 + d)
+    blocks, lib = _u8(rng, (b, d), cuda), _u8(rng, (l, d), cuda)
+    before = L1_ARGMIN.launches
+    got = distance.l1_argmin(blocks, lib)
+    want = distance.l1_argmin_ref(blocks, lib)
+    torch.cuda.synchronize()
+    assert L1_ARGMIN.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_k1_tie_storm_lowest_row(cuda):
+    rng = np.random.default_rng(5)
+    base = _u8(rng, (700, 12), cuda)
+    lib = base.repeat(4, 1)  # 2800 rows, each colour 4 times
+    pick = torch.from_numpy(rng.integers(0, 700, size=33)).to(cuda)
+    dist, row = distance.l1_argmin(base[pick], lib)
+    torch.cuda.synchronize()
+    assert bool((dist == 0).all()) and torch.equal(row, pick.to(torch.int32))
+
+
+@pytest.mark.parametrize(
+    "t,ts,nby,nbx", [(5, 8, 3, 128), (9, 12, 2, 37), (4, 20, 2, 3), (6, 16, 1, 200)]
+)
+def test_k2_matches_plain(cuda, t, ts, nby, nbx):
+    rng = np.random.default_rng(t * 31 + ts)
+    aug, _ = composite.augment_stack2d(_u8(rng, (t, ts, ts, 3), cuda), device=cuda)
+    items = rng.integers(-t, t + 1, size=(nby, nbx)).astype(np.int32)
+    items.reshape(-1)[:6] = [0, t, -t, t + 5, -(t + 5), 1]
+    it = torch.from_numpy(items).to(cuda)
+    before = COMPOSE.launches
+    got = composite.compose_rows(it, aug)
+    torch.cuda.synchronize()
+    assert COMPOSE.launches == before + 1
+    assert torch.equal(got, composite.compose_rows_ref(it, aug))
