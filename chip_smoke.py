@@ -7,22 +7,41 @@ Run from the root of a checkout. Phases, each printing its own lines:
 
   A  environment: torch/CUDA versions, the card's name and power limit,
      nvcc, and a GPU, or it stops;
-  B  build: both CUDA kernels from `emosaic_tpu_torch/csrc/`;
+  B  build: the three CUDA kernels from `emosaic_tpu_torch/csrc/` (one
+     nvcc each, started together) and the native C++ greedy engine;
   C  each kernel against its plain torch version on the card, exactly:
-     K1 (L1 argmin) and K2 (composite) at test and main-path shapes, the
-     tint over all 256 alphas x 65536 pairs, the card's LUT against the
-     CPU's, and a no-fallback run with the plain versions made to raise;
-  D  the main path at the BASELINE size through `render_nto1`, from
-     in-memory arrays: 100k synthetic tiles, mode 1 on a 4096^2 source
-     (LUT), then mode 4 on a 2048^2 source (K1) streamed with a 0.3 tint
-     into a PNG;
+     K1 (L1 argmin), K2 (composite) and K3 (shortlist rescore) at test
+     and main-path shapes, K3 also past a 4 GiB library; the tint over
+     all 256 alphas x 65536 pairs, the card's LUT against the CPU's, and
+     a no-fallback run with the plain versions made to raise;
+  D  the repeat main path at the BASELINE size through `render_nto1`,
+     from in-memory arrays: 100k synthetic tiles, mode 1 on a 4096^2
+     source (LUT), then mode 4 on a 2048^2 source (K1) streamed with a
+     0.3 tint into a PNG;
+  N  the no-repeat main path at the flagship size through
+     `render_nto1_no_repeat`: 32767 clustered synthetic tiles, mode 32 on
+     a 4096^2 source (the adaptive scorer, K3; the native greedy engine
+     with device refills; K2), its candidate lists against the two-level
+     scorer's, the worst case (uniform data) through `l1_topk`, and a
+     full-library-consumption assignment with device refills against
+     host scans;
   E  the CLI, `python -m emosaic_tpu_torch.cli ... --device cuda`, on a
-     generated 4000x3000 photo and 4096 tile files (needs Pillow);
-  F  the launch counts of the main path's run (D), which must be > 0.
+     generated 4000x3000 photo and 4096 tile files (needs Pillow): modes
+     1 and 4, then `--no-repeat`, `--no-repeat --greedy` and
+     `--randomize 10` at mode 16;
+  F  the launch counts of each main path's run (D: K1 and K2; N: K3 and
+     K2), which must be > 0.
 
 Any failed check raises, so the exit code is non-zero and no result line
-is printed. The last lines are one JSON object per kernel, the card's
-name and power limit, and `{"ok": true, "device": {...}}`.
+is printed. The last lines are one JSON object listing every kernel (with
+its launches, error, times and bound), the card's name and power limit,
+and `{"ok": true, "device": {...}}`.
+
+Bounds (`bound_ms`): the larger of the bytes the function must move (each
+input read once, each output written once; for gathers, the rows this
+run's indices reach) over 3.35 TB/s, and its integer operations (an
+absolute difference and an add per byte pair) over 1979 TOP/s, the
+H100 SXM's published HBM rate and int8 peak at its 700 W limit.
 """
 
 from __future__ import annotations
@@ -43,6 +62,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "_smoke"  # listed in .gitignore; removed at the end
 SEED = 0
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8, published
 
 
 def log(*a):
@@ -75,6 +96,14 @@ def cuda_ms(torch, fn, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak rate, whichever is larger."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / INT8_OPS_PER_S * 1e3
+    return {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations"}
 
 
 class Err:
@@ -113,13 +142,20 @@ def phase_a(torch) -> str:
 
 
 def phase_b() -> None:
-    from emosaic_tpu_torch.ops._kernels import KERNELS
+    from emosaic_tpu_torch import native
+    from emosaic_tpu_torch.ops._kernels import KERNELS, build_all
 
     log("== B. build")
+    t0 = time.perf_counter()
+    secs = build_all(KERNELS, force=True)
     for k in KERNELS:
-        secs = k.build(force=True)
         log(f"built {k.source.relative_to(ROOT)} -> {k.library.relative_to(ROOT)} "
-            f"in {secs:.2f} s")
+            f"in {secs[k.name]:.2f} s")
+    log(f"all kernels in {time.perf_counter() - t0:.2f} s (one nvcc each, together)")
+    secs = native.build(force=True)
+    check(native.available(), "the native greedy engine did not load")
+    log(f"built {native.SOURCE.relative_to(ROOT)} -> "
+        f"{native.library_path().relative_to(ROOT)} in {secs:.2f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +215,10 @@ def phase_c_k1(torch, gen, dev, card) -> dict:
     log(f"K1 B={b} L={l} D={d}: first call {first_s:.3f} s; {ms_full:.3f} ms "
         f"per call = {ops / ms_full / 1e9:.2f} T byte-absdiffs/s [{card}]")
     log(f"K1 B=4096 L={l} D={d}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms [{card}]")
+    nb = sub.numel() + lib.numel() + 8 * sub.shape[0]
+    # no single torch call computes an L1 argmin (cdist + argmin is two)
     return {"max_abs_err": err.max, "ms": ms, "plain_ms": plain_ms,
+            **bound(nb, 2.0 * sub.shape[0] * l * d), "library_ms": None,
             "shape": f"B=4096 L={l} D={d}", "ms_main_path_shape": ms_full,
             "main_path_shape": f"B={b} L={l} D={d}"}
 
@@ -212,6 +251,11 @@ def phase_c_k2(torch, gen, dev, card) -> dict:
             composite.compose_rows_ref(items, aug), "K2 BASELINE band")
     ms = cuda_ms(torch, lambda: composite.compose_rows(items, aug))
     plain_ms = cuda_ms(torch, lambda: composite.compose_rows_ref(items, aug))
+    tile_bytes = ts * ts * 3
+    reached = int(torch.unique(composite.rows_of(items, t)).numel())
+    # the tiles the items reach, the items, and the band written
+    k2_bound = bound(reached * tile_bytes + items.numel() * 4
+                     + items.numel() * tile_bytes, 0)
     # past the TPU path's 131072 tiles per call, in one call
     many = items_for(t, 40, 4096)
     err.add(torch, composite.compose_rows(many, aug),
@@ -236,8 +280,69 @@ def phase_c_k2(torch, gen, dev, card) -> dict:
         f"(byte offset > 4 GiB): exact")
     del aug, got, want
     torch.cuda.empty_cache()
+    # no single torch call gathers and lays out a band (index_select gives
+    # [tiles, ts, ts*3]; the band order needs a second, permuting copy)
+    return {"max_abs_err": err.max, "ms": ms, "plain_ms": plain_ms, **k2_bound,
+            "library_ms": None, "shape": "items [32, 4096], T=100000, ts=32"}
+
+
+def phase_c_k3(torch, gen, dev, card) -> dict:
+    from emosaic_tpu_torch.ops import distance
+
+    err = Err()
+
+    def one(b, l, d, m, what, lib=None):
+        lib = _u8(torch, gen, (l, d), dev) if lib is None else lib
+        blocks = _u8(torch, gen, (b, d), dev)
+        # repeated candidates (drawn with replacement), row 0 and row L-1
+        cand = torch.randint(0, l, (b, m), dtype=torch.int32, device=dev, generator=gen)
+        cand[:, 0] = 0
+        cand[:, -1] = l - 1
+        if m > 2:
+            cand[:, 1] = cand[:, 2]
+        err.add(torch, distance.l1_rows(blocks, cand, lib),
+                distance._l1_rows_ref(blocks, cand, lib), f"{what} B={b} L={l} D={d} m={m}")
+
+    dims, ms_ = (3, 12, 48, 192, 768, 3072, 49152), (1, 7, 64, 1024)
+    for d in dims:
+        for m in ms_:
+            one(5, 2000 if d < 49152 else 200, d, m, "K3")
+    log(f"K3 D {dims} x m {ms_}: exact")
+    # a 4.6 GB library; candidates past the 4 GiB byte offset
+    l, d = 1_500_000, 3072
+    lib = _u8(torch, gen, (l, d), dev)
+    first_far = (1 << 32) // d + 1
+    blocks = _u8(torch, gen, (64, d), dev)
+    cand = torch.randint(first_far, l, (64, 256), dtype=torch.int32, device=dev,
+                         generator=gen)
+    cand[:, 0] = l - 1
+    err.add(torch, distance.l1_rows(blocks, cand, lib),
+            distance._l1_rows_ref(blocks, cand, lib), "K3 past 4 GiB")
+    log(f"K3 library {lib.numel() / 1e9:.2f} GB, candidates at rows >= {first_far} "
+        "(byte offset > 4 GiB): exact")
+    del lib, blocks, cand
+    torch.cuda.empty_cache()
+    # the main-path shape: B=16384 blocks, m=1024 candidates, D=3072, L=65534
+    b, l, d, m = 16384, 65534, 3072, 1024
+    lib = _u8(torch, gen, (l, d), dev)
+    blocks = _u8(torch, gen, (b, d), dev)
+    cand = torch.randint(0, l, (b, m), dtype=torch.int32, device=dev, generator=gen)
+    got = distance.l1_rows(blocks, cand, lib)
+    err.add(torch, got, distance._l1_rows_ref(blocks, cand, lib), "K3 main-path shape")
+    ms = cuda_ms(torch, lambda: distance.l1_rows(blocks, cand, lib))
+    plain_ms = cuda_ms(torch, lambda: distance._l1_rows_ref(blocks, cand, lib), reps=2)
+    reached = int(torch.unique(cand).numel())
+    nb = blocks.numel() + cand.numel() * 4 + reached * d + b * m * 4
+    gathered = b * m * d
+    log(f"K3 B={b} m={m} D={d} L={l}: kernel {ms:.3f} ms ({gathered / ms / 1e9:.2f} TB/s "
+        f"of gathered rows), plain {plain_ms:.3f} ms; {reached} rows reached [{card}]")
+    del lib, blocks, cand, got
+    torch.cuda.empty_cache()
+    # no single torch call gathers rows per query and reduces |x - t|
     return {"max_abs_err": err.max, "ms": ms, "plain_ms": plain_ms,
-            "shape": "items [32, 4096], T=100000, ts=32"}
+            **bound(nb, 2.0 * gathered), "library_ms": None,
+            "shape": f"B={b} m={m} D={d} L={l}, random candidates",
+            "gathered_gb": gathered / 1e9}
 
 
 def phase_c_tint_lut(torch, gen, dev, card) -> None:
@@ -277,16 +382,19 @@ def _no_fallback():
 
     @contextlib.contextmanager
     def ctx():
-        saved = (distance.l1_argmin_ref, composite.compose_rows_ref)
+        saved = (distance.l1_argmin_ref, composite.compose_rows_ref,
+                 distance._l1_rows_ref)
 
         def refuse(*a, **k):
             raise AssertionError("a CUDA tensor reached a plain version")
 
         distance.l1_argmin_ref = composite.compose_rows_ref = refuse
+        distance._l1_rows_ref = refuse
         try:
             yield
         finally:
-            distance.l1_argmin_ref, composite.compose_rows_ref = saved
+            (distance.l1_argmin_ref, composite.compose_rows_ref,
+             distance._l1_rows_ref) = saved
 
     return ctx()
 
@@ -314,8 +422,35 @@ def phase_c_no_fallback(torch, gen, dev) -> None:
     wd, wr = distance.l1_argmin_ref(blocks, lib)
     check(np.array_equal(d, wd.cpu().numpy()) and np.array_equal(r, wr.cpu().numpy()),
           "dedup route != plain argmin")
-    log("no fallback: render_nto1 (mode 4, composite) and the dedup route ran "
-        "with both plain versions raising; equal to the CPU run")
+    # the no-repeat render on its adaptive route (K3), 8400 library rows
+    from emosaic_tpu_torch.render import norepeat
+
+    t = 4200
+    base = torch.randint(0, 256, (t // 8, 1, 3), device=dev, generator=gen)
+    pal = (base.repeat_interleave(8, 0).int()
+           + torch.randint(-10, 11, (t, 16, 3), device=dev, generator=gen)).clamp(0, 255)
+    pal = pal.to(torch.uint8).cpu().numpy()
+    ts = TileSet.from_arrays(pal, [f"t{i}.jpg" for i in range(t)])
+    rng = np.random.default_rng(SEED)
+    blk = pal[rng.integers(0, t, 192)].astype(np.int32) + rng.integers(-6, 7, (192, 16, 3))
+    src = np.clip(blk, 0, 255).astype(np.uint8).reshape(12, 16, 4, 4, 3)
+    src = src.transpose(0, 2, 1, 3, 4).reshape(48, 64, 3)  # 12 x 16 blocks of 4 x 4
+    stack = _u8(torch, gen, (t, 8, 8, 3), dev)
+    saved = norepeat._EXACT_BUDGET
+    norepeat._EXACT_BUDGET = 0  # take the adaptive route at this size
+    try:
+        with _no_fallback():
+            res = norepeat.render_nto1_no_repeat(src, ts, 8, device=dev, stack=stack,
+                                                 log=lambda *a: None)
+        cpu = norepeat.render_nto1_no_repeat(src, ts, 8, device="cpu",
+                                             stack=stack.cpu().numpy(), log=lambda *a: None)
+    finally:
+        norepeat._EXACT_BUDGET = saved
+    check(res.info["scoring"]["route"] == "adaptive", f"route {res.info['scoring']}")
+    check(np.array_equal(res.image, cpu.image), "no-repeat no-fallback run != CPU run")
+    log("no fallback: render_nto1 (mode 4, composite), the dedup route and the "
+        "adaptive no-repeat render (K3) ran with every plain version raising; "
+        "equal to the CPU runs")
 
 
 # ---------------------------------------------------------------------------
@@ -487,6 +622,186 @@ def phase_d(torch, gen, dev, card) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# N
+# ---------------------------------------------------------------------------
+
+
+def clustered_palettes(torch, t, n_cells, gen, dev):
+    """t palettes [t, n_cells, 3] u8, each a random base colour with +-10
+    texture per cell (the JAX package's bench model of a real library)."""
+    base = torch.randint(0, 256, (t, 1, 3), device=dev, generator=gen)
+    tex = torch.randint(-10, 11, (t, n_cells, 3), device=dev, generator=gen)
+    return (base + tex).clamp(0, 255).to(torch.uint8)
+
+
+def blocks_of(torch, pal, nb, gen, dev):
+    """nb blocks [nb, n_cells, 3] u8: palettes picked at random, +-6 noise."""
+    pick = torch.randint(0, pal.shape[0], (nb,), device=dev, generator=gen)
+    noise = torch.randint(-6, 7, (nb,) + tuple(pal.shape[1:]), device=dev, generator=gen)
+    return (pal[pick].int() + noise).clamp(0, 255).to(torch.uint8)
+
+
+def profile_render(torch, run, card) -> None:
+    """One more run of `run` under torch.profiler: the device's busy share
+    of the wall (the kernels' device time over the host clock) and the
+    five kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        log("N profile: the profiler saw no device time (not measured)")
+        return
+    busy_us, end, by_name = 0.0, float("-inf"), {}
+    for s0, s1, name in spans:  # the union of the device intervals
+        busy_us += max(0.0, s1 - max(s0, end))
+        end = max(end, s1)
+        by_name[name] = by_name.get(name, 0.0) + (s1 - s0)
+    busy = busy_us / 1e6
+    top = "; ".join(f"{k[:48]} {us / 1e3:.1f} ms"
+                    for k, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
+    log(f"N profile of one more render: wall {wall:.3f} s, device busy {busy:.3f} s "
+        f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%; top: {top} [{card}]")
+
+
+def phase_n(torch, gen, dev, card, t=32767, side=4096, t2=16384) -> dict:
+    from emosaic_tpu_torch import native
+    from emosaic_tpu_torch.ops import distance
+    from emosaic_tpu_torch.ops._kernels import KERNELS
+    from emosaic_tpu_torch.ops.analysis import source_blocks
+    from emosaic_tpu_torch.render.norepeat import render_nto1_no_repeat
+    from emosaic_tpu_torch.tiles.tileset import TileSet
+
+    # the reference Makefile's default class: mode 32, --no-repeat, a 4096^2
+    # source, T = 32767 tiles (its cap) -> B = 16384, L = 65534, D = 3072
+    dim, k = 32, 512
+    g = side // dim
+    t0 = time.perf_counter()
+    pal = clustered_palettes(torch, t, dim * dim, gen, dev)
+    blk = blocks_of(torch, pal, g * g, gen, dev)
+    # block (by, bx) of the source is its palette laid out as 32x32 pixels
+    src = blk.view(g, g, dim, dim, 3).permute(0, 2, 1, 3, 4).reshape(side, side, 3)
+    src = src.cpu().numpy()
+    ts = TileSet.from_arrays(pal.cpu().numpy(), [f"synthetic/{i:05d}.jpg" for i in range(t)])
+    stack = pal.view(t, dim, dim, 3)  # the palettes as the 32x32 tile images
+    torch.cuda.synchronize()
+    log(f"N set-up: {t} clustered tiles and a {side}^2 source in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    for kern in KERNELS:
+        kern.launches = 0
+    lines = []
+    t0 = time.perf_counter()
+    with _no_fallback():
+        res = render_nto1_no_repeat(src, ts, dim, device=dev, stack=stack, log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {kern.name: kern.launches for kern in KERNELS}
+    info, sc = res.info, res.info["scoring"]
+    for ln in lines:
+        log(f"N {ln.strip()}")
+    log(f"N render_nto1_no_repeat: {wall:.3f} s; scoring {info['scoring_s']:.3f} s "
+        f"(prepare {sc['prepare_s']:.3f}, coarse {sc['coarse_s']:.3f}, rescore "
+        f"{sc['rescore_s']:.3f}, fallback {sc['fallback_s']:.3f} for {sc['fallback']} "
+        f"rows, audit {sc['audit_s']:.3f}), assignment {info['assign_s']:.3f} s "
+        f"({info['engine']}, {info['refill_events']} device refill events), stats + "
+        f"compose {info['finish_s']:.3f} s [{card}]")
+    log(f"N launches in the no-repeat run: {launches}")
+    check(info["scorer"] == "adaptive-exact", f"scorer {info['scorer']}")
+    check(sc["route"] == "adaptive", f"adaptive route {sc['route']}")
+    log(f"N certified {sc['certified']}/{sc['blocks']} blocks; {sc['fallback']} "
+        "took the stripe fallback")
+    items = res.items.reshape(-1)
+    check(bool((items != 0).all()), "a block was left unassigned")
+    check(np.unique(np.abs(items)).size == items.size,
+          "a tile was used twice, or with its mirror")
+    check(res.image.shape == (side, side, 3), f"image {res.image.shape}")
+    stack_h = stack.cpu().numpy()
+    for y in (0, 31, side // 2, side - 1):
+        check(np.array_equal(res.image[y].reshape(-1),
+                             expected_row(res.items, stack_h, y, dim)), f"N image row {y}")
+    log(f"N assignment: {items.size} blocks, every |item| distinct (no repeat, no "
+        "mirror pair); image rows equal the host composite")
+    profile_render(torch, lambda: render_nto1_no_repeat(
+        src, ts, dim, device=dev, stack=stack, log=lambda *a: None), card)
+
+    # the lists: the adaptive scorer against the independent two-level one
+    blocks = source_blocks(src, dim, device=dev)
+    lib = distance.build_library(pal)
+    t0 = time.perf_counter()
+    da, ra = distance.l1_topk_adaptive(blocks, lib, k)
+    ad_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dt, rt = distance.l1_topk_twolevel(blocks, lib, k)
+    tl_s = time.perf_counter() - t0
+    check(np.array_equal(da, dt) and np.array_equal(ra, rt),
+          "adaptive lists != two-level lists")
+    log(f"N [{blocks.shape[0]}, {k}] lists: adaptive == two-level, bit for bit "
+        f"(adaptive {ad_s:.3f} s, two-level {tl_s:.3f} s) [{card}]")
+    x = blocks[:4096].float()
+    cdist_ms = cuda_ms(torch, lambda: torch.cdist(x, lib.float(), p=1), reps=2)
+    log(f"N torch.cdist(p=1) {list(x.shape)} x {list(lib.shape)} f32: {cdist_ms:.1f} ms "
+        f"[{card}]")
+    del blocks, x
+
+    # the worst case: uniform data of the same shape reroutes to two-level
+    lib_u = torch.randint(0, 256, lib.shape, dtype=torch.uint8, device=dev, generator=gen)
+    blocks_u = torch.randint(0, 256, (g * g, dim * dim * 3), dtype=torch.uint8,
+                             device=dev, generator=gen)
+    st = {}
+    t0 = time.perf_counter()
+    du, ru = distance.l1_topk(blocks_u, lib_u, k, stats=st)
+    worst_s = time.perf_counter() - t0
+    check(st["route"] == "twolevel (sample gate)", f"worst-case route {st['route']}")
+    sample = torch.arange(0, g * g, 257, device=dev)
+    ds, rs = distance.l1_topk_stripes(blocks_u[sample], lib_u, k)
+    idx = sample.cpu().numpy()
+    check(np.array_equal(du[idx], ds) and np.array_equal(ru[idx], rs),
+          "worst-case lists != stripes on a sample")
+    log(f"N worst case (uniform data) through l1_topk: {worst_s:.3f} s, route "
+        f"{st['route']}; a {idx.size}-block sample equals the stripes [{card}]")
+    del lib_u, blocks_u, lib
+    torch.cuda.empty_cache()
+
+    # full library consumption (B = T): device refills against host scans
+    pal2 = pal[:t2].contiguous()
+    blocks2 = blocks_of(torch, pal2, t2, gen, dev).reshape(t2, -1)
+    lib2 = distance.build_library(pal2)
+    cd, cr = distance.l1_topk_adaptive(blocks2, lib2, k)
+    bh, lh = blocks2.cpu().numpy(), lib2.cpu().numpy()
+    refiller = distance.DeviceRefiller(blocks2, lib2, defer_events=0)
+    refiller.warm()
+    t0 = time.perf_counter()
+    r_dev, d_dev = native.greedy_global(cd, cr, bh, lh, t2, refill_cb=refiller,
+                                        cb_max_batch=refiller.max_batch)
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r_host, d_host = native.greedy_global(cd, cr, bh, lh, t2)
+    host_s = time.perf_counter() - t0
+    check(refiller.n_calls > 0, "the device refiller was never called")
+    check(np.array_equal(r_dev, r_host) and np.array_equal(d_dev, d_host),
+          "device-refill assignment != host-scan assignment")
+    check(int((r_host >= 0).sum()) == t2, "the library was not fully consumed")
+    log(f"N full consumption, B = T = {t2}, L = {2 * t2}: device refills "
+        f"{dev_s:.3f} s ({refiller.n_calls} events), host scans {host_s:.3f} s; "
+        f"rows and dists identical [{card}]")
+    del pal, pal2, blocks2, lib2, stack
+    torch.cuda.empty_cache()
+    return {"launches": launches, "wall_s": wall, "certified": sc["certified"],
+            "lists_adaptive_s": ad_s, "lists_twolevel_s": tl_s, "worst_s": worst_s,
+            "cdist_ms": cdist_ms, "consume_device_s": dev_s, "consume_host_s": host_s}
+
+
+# ---------------------------------------------------------------------------
 # E
 # ---------------------------------------------------------------------------
 
@@ -517,17 +832,22 @@ def phase_e(card) -> None:
                PYTHONPATH=os.pathsep.join(filter(None, [str(ROOT), os.environ.get("PYTHONPATH")])))
     from emosaic_tpu_torch.cli import preprocess_source
 
-    for mode, size, down in [(1, 16, 4), (4, 32, 2)]:
+    # the no-repeat runs: 62x47 = 2914 blocks against 4096 tiles
+    runs = [(1, 16, 4, [], 0.9), (4, 32, 2, [], 0.9),
+            (16, 32, 4, ["--no-repeat"], 0.8),
+            (16, 32, 4, ["--no-repeat", "--greedy"], 0.8),
+            (16, 32, 4, ["--randomize", "10"], 0.9)]
+    for mode, size, down, extra, corr_min in runs:
         out = WORK / f"m{mode}.png"
         cmd = [sys.executable, "-m", "emosaic_tpu_torch.cli", "-s", str(size),
                "-o", str(out), str(WORK / "photo.jpg"), "mosaic", str(tiles),
-               "-m", str(mode), "--downsample", str(down), "--device", "cuda"]
+               "-m", str(mode), "--downsample", str(down), *extra, "--device", "cuda"]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True, cwd=WORK, env=env)
         secs = time.perf_counter() - t0
         if proc.returncode != 0:
             log(proc.stderr[-4000:])
-            raise AssertionError(f"CLI -m {mode} exited {proc.returncode}")
+            raise AssertionError(f"CLI -m {mode} {extra} exited {proc.returncode}")
         src = preprocess_source(Image.open(WORK / "photo.jpg"), down, mode)
         with Image.open(out) as im:
             a = np.asarray(im.convert("RGB"))
@@ -536,11 +856,12 @@ def phase_e(card) -> None:
         bm = a.reshape(nby, size, nbx, size, 3).mean((1, 3))
         sm = src.reshape(nby, mode, nbx, mode, 3).mean((1, 3))
         corr = float(np.corrcoef(bm.ravel(), sm.ravel())[0, 1])
-        check(corr > 0.9, f"CLI -m {mode}: block-mean correlation {corr:.3f}")
+        check(corr > corr_min, f"CLI -m {mode} {extra}: block-mean correlation {corr:.3f}")
         check(out.with_suffix(".stats.png").exists(), "stats PNG missing")
+        out.with_suffix(".stats.png").unlink()
         timings = [ln.strip() for ln in proc.stderr.splitlines()
-                   if ln.startswith("   ") and ln.strip().endswith("s")][:5]
-        log(f"E CLI -m {mode} -s {size} --downsample {down}: {secs:.1f} s, "
+                   if ln.startswith("   ") and ln.strip().endswith("s")][:8]
+        log(f"E CLI -m {mode} -s {size} --downsample {down} {' '.join(extra)}: {secs:.1f} s, "
             f"{a.shape[1]}x{a.shape[0]}, block-mean corr {corr:.4f}; "
             f"{'; '.join(timings)} [{card}]")
         out.unlink()
@@ -571,24 +892,31 @@ def main() -> int:
         log("== C. kernels against their plain versions on the card")
         k1 = phase_c_k1(torch, gen, dev, card)
         k2 = phase_c_k2(torch, gen, dev, card)
+        k3 = phase_c_k3(torch, gen, dev, card)
         phase_c_tint_lut(torch, gen, dev, card)
         phase_c_no_fallback(torch, gen, dev)
         log("== D. main path at the BASELINE size")
-        launches = phase_d(torch, gen, dev, card)
+        launches_d = phase_d(torch, gen, dev, card)
         torch.cuda.empty_cache()
+        log("== N. the no-repeat main path at the flagship size")
+        n = phase_n(torch, gen, dev, card)
+        launches_n = n["launches"]
         log("== E. the CLI")
         phase_e(card)
         log("== F. counters")
-        for k in KERNELS:
-            log(f"{k.name}: {launches[k.name]} launches in D")
-            check(launches[k.name] > 0, f"{k.name} was not launched by the main path")
+        for path, counts, names in [("D", launches_d, ("l1_argmin", "compose")),
+                                    ("N", launches_n, ("l1_rows", "compose"))]:
+            for name in names:
+                log(f"{name}: {counts[name]} launches in {path}")
+                check(counts[name] > 0, f"{name} was not launched by the {path} path")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     log(f"total {time.perf_counter() - t_all:.1f} s")
     rows = []
-    for k, res, replaces in [
-        (KERNELS[0], k1, "emosaic_tpu/ops/distance.py:190"),
-        (KERNELS[1], k2, "emosaic_tpu/ops/composite.py:119"),
+    for k, res, replaces, launches in [
+        (KERNELS[0], k1, "emosaic_tpu/ops/distance.py:190", launches_d),
+        (KERNELS[1], k2, "emosaic_tpu/ops/composite.py:119", launches_d),
+        (KERNELS[2], k3, "emosaic_tpu/ops/distance.py:1535", launches_n),
     ]:
         rows.append({
             "name": k.name, "route": "cuda",

@@ -5,9 +5,10 @@
         [-m MODE] [-f] [-t TINT] [--downsample N] [--device {cuda,cpu}] ...
 
 The parser is the JAX package's, flag for flag, plus `--device`. The
-matched route, the tint route, the banded PNG route and the stats PNG run
-here; the flags of routes not ported yet raise NotImplementedError naming
-their ROADMAP item. Parity quirks kept: the output is always PNG-encoded
+matched route (with `--randomize` and `--no-repeat --greedy`), the global
+no-repeat route (`--no-repeat`), the tint route, the banded PNG route and
+the stats PNG run here; the flags of routes not ported yet raise
+NotImplementedError naming their ROADMAP item. Parity quirks kept: the output is always PNG-encoded
 (main.rs:482-483) and the tint path returns before the stats
 (main.rs:477).
 """
@@ -378,9 +379,6 @@ def _refuse_unported(args) -> None:
     if args.subcmd == "mosaic":
         checks += [
             (args.mode == Mode.RANDOM.value, "-m random", "render/random_mode.py"),
-            (args.no_repeat, "--no-repeat", "render/norepeat.py + greedy.py"),
-            (args.randomize is not None, "--randomize",
-             "ops/distance.py slice B (exact top-k)"),
             (args.matcher in ("xla", "hybrid"), f"--matcher {args.matcher}",
              "hybrid and L2 matchers"),
             (args.metric == "l2", "--metric l2", "hybrid and L2 matchers"),
@@ -465,6 +463,7 @@ def run_mosaic(args, timer=None) -> None:
 
     from emosaic_tpu_torch.ops.composite import stream_tinted_bands, tint_blend
     from emosaic_tpu_torch.render.matched import render_nto1
+    from emosaic_tpu_torch.render.norepeat import render_nto1_no_repeat
 
     timer = timer or PhaseTimer(log)
     device = resolve_device(args.device)
@@ -512,15 +511,42 @@ def run_mosaic(args, timer=None) -> None:
     out_w = (src.shape[1] // dim) * args.tile_size
     streaming = out_h * out_w * 3 > args.stream_threshold or stack is None
     with timer.phase("match + compose"):
-        result = render_nto1(
-            src,
-            tile_set,
-            args.tile_size,
-            device=device,
-            use_lut=use_lut,
-            stack=stack,
-            compose=not streaming,
-        )
+        if args.no_repeat and not args.greedy:
+            dropped = [
+                n
+                for n, off in (
+                    ("--randomize", args.randomize is None),
+                    (f"--metric {args.metric}", args.metric == "l1"),
+                    (f"--matcher {args.matcher}", args.matcher in ("auto", "hybrid")),
+                )
+                if not off
+            ]
+            if dropped:
+                # the reference drops these silently on this route
+                # (main.rs:663-666 passes neither randomize nor a matcher
+                # choice to render_nto1_no_repeat); warn like the greedy
+                # branch does (render/matched.py)
+                log(
+                    f"⚠️  {', '.join(dropped)} ignored: global "
+                    "no-repeat always scores with the exact L1 top-k"
+                )
+            result = render_nto1_no_repeat(
+                src, tile_set, args.tile_size, device=device, stack=stack,
+                compose=not streaming,
+            )
+        else:
+            result = render_nto1(
+                src,
+                tile_set,
+                args.tile_size,
+                no_repeat=args.no_repeat,
+                randomize=args.randomize,
+                seed=args.seed,
+                device=device,
+                use_lut=use_lut,
+                stack=stack,
+                compose=not streaming,
+            )
     result.stats.summarise(tile_set)
     output = result.image
     items = result.items

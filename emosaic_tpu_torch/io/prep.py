@@ -148,8 +148,12 @@ def _trim_crop(rgb: Image.Image, crop: bool) -> tuple[Image.Image, int]:
     returns (cropped image, min crop dimension). Raises ValueError for
     all/mostly-white images (trim_bounds)."""
     arr = np.asarray(rgb, dtype=np.uint8)
-    # the numpy scan; the JAX package's AVX2 native trim is not ported yet
-    left, top, tw, th = trim_bounds(arr)
+    # the native AVX2 scan when the engine builds (parity-tested in
+    # tests/test_torch_native.py); the numpy scan is the oracle/fallback
+    from emosaic_tpu_torch import native
+
+    trim = native.trim_bounds if native.available() else trim_bounds
+    left, top, tw, th = trim(arr)
     if crop:
         # largest centered square inside the trimmed region (utils.rs:176-187)
         size = min(tw, th)

@@ -119,4 +119,20 @@ COMPOSE = CudaKernel(
     "emosaic_compose",
     [_I, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P],
 )
-KERNELS = (L1_ARGMIN, COMPOSE)
+#: csrc/l1_rows.cu (see ops/distance.py `l1_rows`)
+L1_ROWS = CudaKernel(
+    "l1_rows",
+    "emosaic_l1_rows",
+    [_I, _P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_longlong, _I, _I, _P],
+)
+KERNELS = (L1_ARGMIN, COMPOSE, L1_ROWS)
+
+
+def build_all(kernels=KERNELS, force: bool = False) -> dict:
+    """Build the kernels at once, one nvcc process each; returns
+    {name: seconds}. Raises the first build error."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(kernels)) as ex:
+        futs = {k.name: ex.submit(k.build, force) for k in kernels}
+        return {name: f.result() for name, f in futs.items()}

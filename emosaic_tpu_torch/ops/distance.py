@@ -1,35 +1,78 @@
-"""Exact L1 (Manhattan) nearest-row matching: library build and argmin.
+"""Exact L1 (Manhattan) matching: library build, argmin and exact top-k.
 
-The torch counterpart of the argmin slice of `emosaic_tpu/ops/distance.py`.
+The torch counterpart of `emosaic_tpu/ops/distance.py`.
 
 - `build_library`: the [2T, 3N] library with horizontally-flipped
   duplicates of every tile: row r < T is item r+1, row r >= T is item
   -(r-T+1) (tileset.rs:180-188).
 - `l1_argmin`: the exact nearest row per block. On a CUDA tensor it
-  launches the hand-written kernel `csrc/l1_argmin.cu`; on a CPU tensor it
-  runs `l1_argmin_ref`, its plain torch version.
+  launches the hand-written kernel K1 `csrc/l1_argmin.cu`; on a CPU tensor
+  it runs `l1_argmin_ref`, its plain torch version.
+- `l1_topk` and the scorers behind it (`l1_topk_stripes`,
+  `l1_topk_twolevel`, `l1_topk_adaptive`, `l1_topk_streamed`): exact k
+  nearest rows per block for `--randomize` (rendering.rs:168-185) and the
+  no-repeat candidate lists (rendering.rs:307-321). The dense distance
+  stripes come from `l1_block`; the adaptive scorer's shortlist rescore is
+  the hand-written kernel K3 `csrc/l1_rows.cu` (`l1_rows`), with
+  `_l1_rows_ref` its plain version for CPU tensors.
+- `DeviceRefiller`: the batched masked top-k refill of the no-repeat
+  assignment engine.
 
-Distances are exact int32, ties go to the lowest library row.
+Distances are exact int32. Ties go to the lowest library row: every top-k
+selection sorts on a packed int64 key (distance << 32) | row, because
+`torch.topk` does not put the lowest index first among equal values.
+
+The scorers take uint8 tensors (or numpy arrays) and compute on `device`,
+which defaults to the device of `blocks`; a library may stay on the host
+and is then uploaded bank by bank (`l1_topk_streamed`). They return host
+numpy arrays, like the JAX package's.
+
+TPU-only devices of the JAX package that this port drops, one line each:
+
+- `_lib_banks` / `_DMA_LIB_BYTES_MAX`: TPU DMA row offsets wrap at 4 GiB;
+  K3 uses 64-bit offsets.
+- the static-slice + `optimization_barrier` chain of `_ad_proj_bank_jit`:
+  it works around an XLA-TPU scan miscompile; the projection here is a
+  plain chunked loop.
+- the bf16 selection matmul of `_ad_project`: see `_ad_project`.
+- the f32-vs-i32 stripe choice (`_stripe_f32_ok`): a v5e lane-rate fact.
+- the fixed padded shapes of `_refill_topk_jit`: XLA compile caching;
+  torch runs each event at its own shape.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import math
+import os
+import sys
+import time
 
+import numpy as np
 import torch
 
-from emosaic_tpu_torch.ops._kernels import L1_ARGMIN
+from emosaic_tpu_torch.ops._kernels import L1_ARGMIN, L1_ROWS
 
 I32_MAX = 2**31 - 1
+_MASK32 = 0xFFFFFFFF
 
-#: device-resident library budget (u8 bytes of [L, D]); the JAX package
-#: streams larger libraries in host banks, which this port does not yet do
-DEVICE_LIB_BYTES_MAX = 16 << 30
+#: device-resident library budget (u8 bytes of [L, D]). Re-derived for the
+#: H100's 80 GB: the adaptive scorer holds the library, its projected
+#: int32 copy and that copy's segment-major permutation (at most 3x the
+#: library at the smallest group g = 4), the 2 GB survivor lists and a few
+#: GB of stripe workspace, and the streamed scorer's prefetch holds two
+#: half-budget banks; 16 GB leaves that inside 80 GB. Larger libraries
+#: stream in banks (`l1_topk_streamed`). EMOSAIC_DEVICE_LIB_BYTES
+#: overrides it, as in the JAX package.
+DEVICE_LIB_BYTES_MAX = int(os.environ.get("EMOSAIC_DEVICE_LIB_BYTES", 16 << 30))
 
 #: K1 blocks per SM that fill the card; with fewer query tiles than
 #: SMs x this, K1 splits the library across blocks
 _BLOCKS_PER_SM = 8
+#: K3 blocks per SM that fill the card; with fewer queries than SMs x
+#: this, K3 splits each query's candidates across blocks
+_ROWS_BLOCKS_PER_SM = 8
 
 
 def flip_palettes(palettes: torch.Tensor) -> torch.Tensor:
@@ -62,6 +105,35 @@ def items_to_rows(items: torch.Tensor, num_tiles: int) -> torch.Tensor:
     return torch.where(items > 0, items - 1, num_tiles - items - 1).to(
         torch.int32
     )
+
+
+def _as_u8(x) -> torch.Tensor:
+    """A uint8 tensor of a tensor or an array, without a copy where the
+    array allows it (read-only arrays are copied)."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype != torch.uint8:
+            raise TypeError(f"expected uint8, got {x.dtype}")
+        return x
+    a = np.ascontiguousarray(x, dtype=np.uint8)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
+def _device_of(blocks: torch.Tensor, device) -> torch.device:
+    return blocks.device if device is None else torch.device(device)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    return x.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Argmin (K1)
+# ---------------------------------------------------------------------------
 
 
 def _chunk_sizes(d: int, budget: int = 64 * 2**20) -> tuple[int, int]:
@@ -100,13 +172,14 @@ def l1_argmin_ref(
     return dist, row
 
 
-def _pad_words(x: torch.Tensor, d4: int) -> torch.Tensor:
-    """Zero-pad the feature axis to d4 bytes (a multiple of 4) and make the
-    rows 4-byte aligned, as `__vsadu4` reads whole words."""
-    if x.shape[1] != d4:
-        x = torch.nn.functional.pad(x, (0, d4 - x.shape[1]))
+def _pad_words(x: torch.Tensor, width: int, align: int = 4) -> torch.Tensor:
+    """Zero-pad the feature axis to `width` bytes (a multiple of `align`)
+    and make the rows `align`-byte aligned, as the kernels read whole
+    4-byte words (K1) or 16-byte vectors (K3)."""
+    if x.shape[1] != width:
+        x = torch.nn.functional.pad(x, (0, width - x.shape[1]))
     x = x.contiguous()
-    if x.data_ptr() % 4:
+    if x.data_ptr() % align:
         x = x.clone()
     return x
 
@@ -150,30 +223,33 @@ def l1_argmin(
     Args:
       blocks: [B, D] uint8 query vectors.
       lib: [L, D] uint8 library matrix (see `build_library`), L >= 1, on the
-        same device.
+        same device, or on the host when it exceeds `DEVICE_LIB_BYTES_MAX`.
 
     Returns:
-      (dist [B] int32, row [B] int32) on that device: the least L1 distance
-      and the lowest library row reaching it.
+      (dist [B] int32, row [B] int32) on the blocks' device: the least L1
+      distance and the lowest library row reaching it.
 
     A CUDA tensor goes to K1 (`csrc/l1_argmin.cu`) for every D the modes
-    produce; a CPU tensor to `l1_argmin_ref`.
+    produce; a CPU tensor to `l1_argmin_ref`. A library over the device
+    budget streams in banks through `l1_topk_streamed` with k = 1, which
+    keeps the lowest-row rule through the cross-bank merge.
     """
     if blocks.dtype != torch.uint8 or lib.dtype != torch.uint8:
         raise TypeError(f"l1_argmin takes uint8, got {blocks.dtype}/{lib.dtype}")
     if blocks.dim() != 2 or lib.dim() != 2 or blocks.shape[1] != lib.shape[1]:
         raise ValueError(f"shapes {tuple(blocks.shape)} / {tuple(lib.shape)}")
-    if blocks.device != lib.device:
-        raise ValueError(f"devices differ: {blocks.device} / {lib.device}")
     b, l = blocks.shape[0], lib.shape[0]
     if l == 0:
         raise ValueError("empty library")
-    if lib.numel() > DEVICE_LIB_BYTES_MAX:
-        raise NotImplementedError(
-            f"library of {lib.numel()} bytes exceeds the device-resident "
-            f"budget ({DEVICE_LIB_BYTES_MAX}); streamed host banks are "
-            "ROADMAP item 'ops/distance.py slice C'"
+    if lib.numel() > DEVICE_LIB_BYTES_MAX and l > _TL_SEG:
+        da, ra = l1_topk_streamed(blocks, lib, 1)
+        dev = blocks.device
+        return (
+            torch.from_numpy(np.ascontiguousarray(da[:, 0])).to(dev),
+            torch.from_numpy(np.ascontiguousarray(ra[:, 0])).to(dev),
         )
+    if blocks.device != lib.device:
+        raise ValueError(f"devices differ: {blocks.device} / {lib.device}")
     if b >= 2**31 or l >= 2**31:
         raise ValueError(f"B={b} or L={l} does not fit int32 indices")
     if blocks.device.type == "cpu":
@@ -181,3 +257,931 @@ def l1_argmin(
     if blocks.device.type != "cuda":
         raise ValueError(f"unsupported device {blocks.device}")
     return _l1_argmin_cuda(blocks, lib)
+
+
+# ---------------------------------------------------------------------------
+# Dense distance stripes and the exact top-k core
+# ---------------------------------------------------------------------------
+
+#: f32 bytes of one library chunk of `l1_block` on the card (the cdist
+#: operand; its output is bounded by the callers' row chunks)
+_BLOCK_F32_BYTES = 1 << 30
+#: int32 bytes of one [bc, L] stripe: callers chunk their query rows so a
+#: stripe (and its f32 twin inside cdist) stays under this
+_STRIPE_BYTES = 1 << 30
+
+
+def _stripe_rows(n: int, width: int = 4) -> int:
+    """Query rows per chunk so a [rows, n] stripe of `width`-byte entries
+    stays under `_STRIPE_BYTES`."""
+    return max(1, _STRIPE_BYTES // max(1, width * n))
+
+
+def l1_block(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """dist[i, j] = sum_d |x[i, d] - t[j, d]| as int32 [bx, bt] on x's device.
+
+    x, t: integer tensors on one device (u8 vectors, or the int32 group
+    sums of the adaptive scorer) whose L1 sums stay below 2^24. This is
+    the dense stripe the JAX package leaves to XLA's fusion
+    (`_stripe_score_env`, `_min_sum_stripe`), not a Pallas kernel. On the
+    card it is `torch.cdist(p=1)` in f32, chunked over library rows:
+    exact, because every term is an integer and every partial sum is at
+    most 255 * 49152 < 2^24. On the CPU it is chunked int32 arithmetic.
+    """
+    bx, d = x.shape
+    bt = t.shape[0]
+    out = torch.empty((bx, bt), dtype=torch.int32, device=x.device)
+    if bx == 0 or bt == 0:
+        return out
+    if x.device.type == "cuda":
+        xf = x.float()
+        ch = max(1, min(_BLOCK_F32_BYTES // (4 * max(d, 1)), (1 << 28) // bx))
+        for t0 in range(0, bt, ch):
+            out[:, t0 : t0 + ch] = torch.cdist(xf, t[t0 : t0 + ch].float(), p=1)
+        return out
+    xi = x.to(torch.int32)
+    ti = t.to(torch.int32)
+    bc, lc = _chunk_sizes(d)
+    for b0 in range(0, bx, bc):
+        xc = xi[b0 : b0 + bc, None, :]
+        for t0 in range(0, bt, lc):
+            out[b0 : b0 + bc, t0 : t0 + lc] = (
+                (xc - ti[None, t0 : t0 + lc, :]).abs().sum(-1, dtype=torch.int32)
+            )
+    return out
+
+
+def _keys(dist: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Packed int64 selection keys (dist << 32) | col: their order is the
+    (distance, lowest row) order, and no two are equal."""
+    return (dist.to(torch.int64) << 32) | cols.to(torch.int64)
+
+
+def _unkey(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return (keys >> 32).to(torch.int32), (keys & _MASK32).to(torch.int32)
+
+
+def _least(keys: torch.Tensor, k: int) -> torch.Tensor:
+    """The k least keys of each row, ascending."""
+    if k >= keys.shape[-1]:
+        return torch.sort(keys, dim=-1).values
+    return torch.topk(keys, k, dim=-1, largest=False, sorted=True).values
+
+
+def _topk_rows(dist: torch.Tensor, k: int, cols: torch.Tensor | None = None):
+    """The k least (distance, col) pairs of each row of an int32 [r, n]
+    matrix, ascending; `cols` (default: the column positions) names each
+    entry. Returns (dists [r, k] i32, cols [r, k] i32)."""
+    if cols is None:
+        cols = torch.arange(dist.shape[1], device=dist.device)
+    return _unkey(_least(_keys(dist, cols), k))
+
+
+def _pad_topk(out_d, out_r, b: int, k: int, kk: int):
+    """Shared top-k padding convention: when k exceeds the available rows
+    (kk), trailing entries carry I32_MAX distances and row 0."""
+    if kk < k:
+        out_d = np.concatenate(
+            [out_d, np.full((b, k - kk), I32_MAX, np.int32)], axis=1
+        )
+        out_r = np.concatenate(
+            [out_r, np.zeros((b, k - kk), np.int32)], axis=1
+        )
+    return out_d, out_r
+
+
+def l1_topk_stripes(blocks, lib, k: int, *, device=None):
+    """Exact k nearest rows per block via full-library distance stripes.
+
+    Same contract as `l1_topk` (ascending by (distance, row); I32_MAX
+    padding when k > L): `l1_block` stripes of bounded row chunks, each
+    selected on the packed key. Returns host numpy int32 arrays.
+    """
+    blocks, lib = _as_u8(blocks), _as_u8(lib)
+    dev = _device_of(blocks, device)
+    b, l = blocks.shape[0], lib.shape[0]
+    kk = min(k, l)
+    out_d = np.empty((b, kk), np.int32)
+    out_r = np.empty((b, kk), np.int32)
+    if b and kk:
+        x, t = blocks.to(dev), lib.to(dev)
+        bc = _stripe_rows(l)
+        for b0 in range(0, b, bc):
+            dd, rr = _topk_rows(l1_block(x[b0 : b0 + bc], t), kk)
+            out_d[b0 : b0 + bc] = _host(dd)
+            out_r[b0 : b0 + bc] = _host(rr)
+    return _pad_topk(out_d, out_r, b, k, kk)
+
+
+def _stripe_fallback(out_d, out_r, bad, blocks, lib, kk: int, *, device=None):
+    """Shared uncertified-row fallback: exact stripe recompute for `bad`
+    rows, written into the (host) outputs."""
+    if bad.size:
+        sel = torch.from_numpy(bad).to(blocks.device)
+        fd, fr = l1_topk_stripes(blocks[sel], lib, kk, device=device)
+        out_d[bad] = fd
+        out_r[bad] = fr
+    return out_d, out_r
+
+
+def l1_dist_matrix(blocks, lib, *, device=None) -> np.ndarray:
+    """Full [B, L] int32 L1 distance matrix (host numpy), the exact
+    global-greedy no-repeat path's candidate lists (rendering.rs:320:
+    under the reference's 32767-tile cap its 100k-NN fetch is the whole
+    sorted list)."""
+    blocks, lib = _as_u8(blocks), _as_u8(lib)
+    dev = _device_of(blocks, device)
+    b, l = blocks.shape[0], lib.shape[0]
+    out = np.empty((b, l), np.int32)
+    x, t = blocks.to(dev), lib.to(dev)
+    bc = _stripe_rows(l)
+    for b0 in range(0, b, bc):
+        out[b0 : b0 + bc] = _host(l1_block(x[b0 : b0 + bc], t))
+    return out
+
+
+#: dense-matrix + host-argpartition path while B * L stays under this
+_TOPK_MATRIX_BUDGET = 2 * 10**8
+
+
+def l1_topk(blocks, lib, k: int, *, device=None, stats: dict | None = None):
+    """k nearest library rows per block, ascending by (distance, row).
+
+    Replaces kiddo `nearest_n` (rendering.rs:172-174 k=20 for --randomize;
+    rendering.rs:307-321 candidate lists for global-greedy no-repeat).
+    Small B*L: the dense matrix and a host argpartition on a packed int64
+    key; anything larger, or a library over the device budget: the
+    adaptive certified scorer, which reroutes itself where it cannot
+    prune. `stats` is passed on to `l1_topk_adaptive`.
+
+    Returns:
+      (dists [B, k] int32, rows [B, k] int32) numpy. If k > L, trailing
+      entries carry I32_MAX distances.
+    """
+    blocks, lib = _as_u8(blocks), _as_u8(lib)
+    b, l = blocks.shape[0], lib.shape[0]
+    if b * l > _TOPK_MATRIX_BUDGET or (
+        lib.numel() > DEVICE_LIB_BYTES_MAX and l > _TL_SEG
+    ):
+        return l1_topk_adaptive(blocks, lib, k, device=device, stats=stats)
+    kk = min(k, l)
+    dist = l1_dist_matrix(blocks, lib, device=device)
+    # exact lexicographic (distance, row) selection: a plain argpartition
+    # on distances picks arbitrary tie members at the kth boundary, so
+    # partition on a packed int64 key instead
+    key = dist.astype(np.int64) * l + np.arange(l, dtype=np.int64)[None, :]
+    if kk < l:
+        part = np.argpartition(key, kk - 1, axis=1)[:, :kk]
+    else:
+        part = np.broadcast_to(np.arange(l), (dist.shape[0], l)).copy()
+    pk = np.take_along_axis(key, part, axis=1)
+    order = np.argsort(pk, axis=1)
+    out_r = np.take_along_axis(part, order, axis=1).astype(np.int32)
+    out_d = (np.take_along_axis(pk, order, axis=1) // l).astype(np.int32)
+    return _pad_topk(out_d, out_r, b, k, kk)
+
+
+# ---------------------------------------------------------------------------
+# Two-level exact top-k
+#
+# The library axis splits into 128-column segments; each keeps its `cap`
+# least (distance, row) keys, and one global selection over the survivors
+# gives the top k. A row is exact when no segment could have hidden a
+# member: every segment's cap-th kept distance is strictly above the k-th
+# (strict, because a truncated tie could have a lower row). Rows that do
+# not certify are recomputed from full stripes.
+# ---------------------------------------------------------------------------
+
+#: library columns per stage-1 segment
+_TL_SEG = 128
+#: stage-1 survivors per segment
+_TL_CAP = 8
+#: invalid-column sentinel of the adaptive scorer's coarse distances
+_TL_BIG = 2**30
+#: query rows of the adaptive scorer's sample gate (and the floor of its
+#: block slices): the JAX package's block chunk
+_STRIPE_BC = 128
+
+
+def l1_topk_twolevel(blocks, lib, k: int, *, device=None):
+    """Exact k nearest rows per block, same contract and results as
+    `l1_topk_stripes`, via the segmented two-level selection with per-row
+    certification and stripe fallback."""
+    blocks, lib = _as_u8(blocks), _as_u8(lib)
+    dev = _device_of(blocks, device)
+    b, l = blocks.shape[0], lib.shape[0]
+    lp = -(-l // _TL_SEG) * _TL_SEG
+    nseg = lp // _TL_SEG
+    kk = min(k, l)
+    if kk > min(l, nseg * _TL_CAP) or b == 0:
+        return l1_topk_stripes(blocks, lib, k, device=dev)
+    x, t = blocks.to(dev), lib.to(dev)
+    out_d = np.empty((b, kk), np.int32)
+    out_r = np.empty((b, kk), np.int32)
+    ok = np.empty(b, bool)
+    cols = torch.arange(lp, device=dev)
+    bc = _stripe_rows(lp, 8)
+    for b0 in range(0, b, bc):
+        dist = l1_block(x[b0 : b0 + bc], t)
+        if lp > l:  # the last segment's missing columns never win
+            dist = torch.nn.functional.pad(dist, (0, lp - l), value=I32_MAX)
+        seg = _least(_keys(dist, cols).view(-1, nseg, _TL_SEG), _TL_CAP)
+        del dist
+        dd, rr = _unkey(_least(seg.flatten(1), kk))
+        worst = (seg[:, :, _TL_CAP - 1] >> 32).to(torch.int32)
+        out_d[b0 : b0 + bc] = _host(dd)
+        out_r[b0 : b0 + bc] = _host(rr)
+        ok[b0 : b0 + bc] = _host((worst > dd[:, kk - 1 :]).all(dim=1))
+    bad = np.flatnonzero(~ok)
+    out_d, out_r = _stripe_fallback(out_d, out_r, bad, x, t, kk, device=dev)
+    return _pad_topk(out_d, out_r, b, k, kk)
+
+
+# ---------------------------------------------------------------------------
+# Adaptive coarse-to-fine certified top-k (the no-repeat scorer)
+#
+# A projection that sums groups of g coordinates gives an exact L1 lower
+# bound (|sum x - sum t| <= sum |x - t| per group) at 1/g of the work:
+#   1. coarse stripes over STRIDED segments (segment s holds columns
+#      {s + k*nseg}, so a run of similar tiles in discovery order spreads
+#      over many segments) -> per-segment least `cap` coarse keys;
+#   2. the m least survivors are the candidates; every other row has a
+#      coarse bound >= c_next = min(worst kept per segment, first
+#      unselected survivor);
+#   3. exact full-D rescore of the candidates: K3 (`l1_rows`);
+#   4. a row certifies when c_next > its k-th true distance (strict, for
+#      ties); the others are recomputed from full stripes.
+# Concentrated data (uniform noise) cannot be pruned: a sample chunk
+# detects it and the call reroutes to the two-level scorer.
+# ---------------------------------------------------------------------------
+
+#: coarse group width preference (the first divisor of nc is used)
+_AD_GROUPS = (32, 16, 8, 4)
+#: coarse survivors per 128-column segment
+_AD_CAP = 16
+#: candidates rescored at full D per block
+_AD_M = 1024
+#: block-axis slice of the adaptive scorer
+_AD_B_SLICE = 16384
+#: device budget of the coarse survivor keys ([slice, nseg*cap] int64)
+_AD_SURV_BYTES = 2 << 30
+#: query rows per coarse chunk: its [rows, lp] int64 keys stay under
+#: twice the stripe budget
+_AD_COARSE_KEY_BYTES = 2 << 30
+#: library rows per chunk of the coarse projection
+_AD_PROJ_ROWS = 1 << 16
+#: int32 bytes of the plain rescore's [rows, m, D] gather
+_RESCORE_I32_BYTES = 64 << 20
+
+
+def _ad_b_slice(nseg: int, cap: int, bc: int) -> int:
+    """Block-axis slice length: `_AD_B_SLICE` capped by the survivor
+    budget, floored to a (non-zero) multiple of bc."""
+    rows = _AD_SURV_BYTES // (nseg * cap * 8)
+    return max(bc, min(_AD_B_SLICE, rows // bc * bc))
+
+
+def _ad_params(nseg: int, m: int = _AD_M, cap: int = _AD_CAP) -> tuple[int, int]:
+    """Scale the adaptive scorer's (m, cap) to the library size: cap 8 past
+    1024 segments (fewer expected survivors per segment), and m grows by
+    ceil(nseg / 2048) so the rescore digs as deep into the survivor pool
+    as the library grows. Exactness never depends on either."""
+    if nseg > 1024:
+        cap = min(cap, 8)
+    m *= max(1, -(-nseg // 2048))
+    return m, cap
+
+
+def _ad_project(x: torch.Tensor, d: int, g: int, chan: bool) -> torch.Tensor:
+    """Group-sum projection [r, d] -> int32 [r, dout], an L1 lower bound.
+    `chan=True` sums g cells per RGB channel (palette coordinates
+    interleave the channels), [r, nc/g, g, 3] summed over g; else g
+    consecutive coordinates. An exact int32 sum: the TPU used a bf16
+    selection matmul only because a size-3 minor dim tiles badly there."""
+    r = x.shape[0]
+    xi = x.to(torch.int32)
+    if chan:
+        return xi.reshape(r, d // (3 * g), g, 3).sum(2, dtype=torch.int32).reshape(r, -1)
+    return xi.reshape(r, d // g, g).sum(2, dtype=torch.int32)
+
+
+def _ad_plan(
+    b: int, l: int, d: int, k: int, m: int = _AD_M, cap: int = _AD_CAP, *,
+    device=None,
+):
+    """Adaptive-scorer eligibility and parameters:
+    (eligible, g, chan, kk, lp, nseg, m, cap, use_k3). Ineligible shapes go
+    to the two-level scorer. `use_k3` is whether the rescore runs K3 (a
+    CUDA device); without it the rescore is the plain gather, which at
+    production scale and D > 256 loses to the two-level scorer."""
+    chan = d % 3 == 0
+    nc = d // 3 if chan else d
+    g = next(
+        (
+            gg
+            for gg in _AD_GROUPS
+            if nc % gg == 0 and (nc // gg) * (3 if chan else 1) >= 4
+        ),
+        None,
+    )
+    kk = min(k, l)
+    lp = -(-l // _TL_SEG) * _TL_SEG
+    nseg = lp // _TL_SEG
+    m, cap = _ad_params(nseg, m, cap)
+    use_k3 = device is not None and torch.device(device).type == "cuda"
+    eligible = not (
+        g is None
+        or b == 0
+        or kk > m // 2
+        or m + 1 > nseg * cap
+        or l <= 2 * m
+        or (not use_k3 and d > 256 and b * l > 10**7)
+    )
+    return eligible, g, chan, kk, lp, nseg, m, cap, use_k3
+
+
+def _pad_lib(lib: torch.Tensor, lp: int, dev) -> torch.Tensor:
+    """The library on `dev`, zero-padded to lp rows (a multiple of 128)."""
+    l, d = lib.shape
+    lib_pad = torch.zeros((lp, d), dtype=torch.uint8, device=dev)
+    lib_pad[:l] = lib.to(dev)
+    return lib_pad
+
+
+def _ad_coarse_lib(lib_pad: torch.Tensor, d: int, g: int, chan: bool, real_l: int):
+    """The projected library in segment-major order: position s*w + k holds
+    row k*nseg + s (w = 128 columns per segment), so a coarse stripe comes
+    out segment by segment. Returns (proj [lp, dout] i32, cols [lp] i64,
+    the library row of each position, invalid [lp] bool)."""
+    lp = lib_pad.shape[0]
+    nseg = lp // _TL_SEG
+    w = lp // nseg
+    dev = lib_pad.device
+    proj = torch.cat(
+        [
+            _ad_project(lib_pad[r0 : r0 + _AD_PROJ_ROWS], d, g, chan)
+            for r0 in range(0, lp, _AD_PROJ_ROWS)
+        ]
+    )
+    pos = torch.arange(lp, device=dev)
+    cols = (pos % w) * nseg + pos // w
+    return proj[cols], cols, cols >= real_l
+
+
+def _ad_coarse(x, coarse_lib, d: int, g: int, chan: bool, cap: int):
+    """Step 1 for the blocks x [r, d]: per segment, the `cap` least coarse
+    (bound, row) keys. Returns (keys [r, nseg*cap] i64, ascending within
+    each segment; s_min [r] i32, the least over segments of the worst
+    kept bound, part of the bound on every row not kept)."""
+    proj, cols, invalid = coarse_lib
+    lp = proj.shape[0]
+    nseg = lp // _TL_SEG
+    r = x.shape[0]
+    keys = torch.empty((r, nseg * cap), dtype=torch.int64, device=x.device)
+    s_min = torch.empty((r,), dtype=torch.int32, device=x.device)
+    bc = max(1, _AD_COARSE_KEY_BYTES // (8 * lp))
+    for b0 in range(0, r, bc):
+        dist = l1_block(_ad_project(x[b0 : b0 + bc], d, g, chan), proj)
+        dist.masked_fill_(invalid, _TL_BIG)
+        seg = _least(_keys(dist, cols).view(-1, nseg, _TL_SEG), cap)
+        del dist
+        keys[b0 : b0 + bc] = seg.flatten(1)
+        s_min[b0 : b0 + bc] = (seg[:, :, cap - 1] >> 32).min(dim=1).values.to(
+            torch.int32
+        )
+    return keys, s_min
+
+
+def _l1_rows_ref(
+    blocks: torch.Tensor, cand: torch.Tensor, lib: torch.Tensor
+) -> torch.Tensor:
+    """Plain torch version of K3: dist[i, j] = L1(blocks[i],
+    lib[min(cand[i, j], L-1)]) as int32 [B, m], by a chunked int32 gather
+    and abs-sum."""
+    b, d = blocks.shape
+    m = cand.shape[1]
+    l = lib.shape[0]
+    out = torch.empty((b, m), dtype=torch.int32, device=blocks.device)
+    idx = cand.clamp(0, l - 1).to(torch.int64)
+    rows = max(1, _RESCORE_I32_BYTES // max(1, 4 * m * d))
+    for b0 in range(0, b, rows):
+        tc = lib[idx[b0 : b0 + rows]].to(torch.int32)  # [rows, m, D]
+        xc = blocks[b0 : b0 + rows, None, :].to(torch.int32)
+        out[b0 : b0 + rows] = (xc - tc).abs().sum(-1, dtype=torch.int32)
+    return out
+
+
+def _l1_rows_cuda(
+    blocks: torch.Tensor, cand: torch.Tensor, lib: torch.Tensor
+) -> torch.Tensor:
+    b, d = blocks.shape
+    m = cand.shape[1]
+    l = lib.shape[0]
+    d16 = -(-d // 16) * 16
+    q = _pad_words(blocks, d16, 16)
+    t = _pad_words(lib, d16, 16)
+    c = cand.to(torch.int32).contiguous()
+    out = torch.empty((b, m), dtype=torch.int32, device=blocks.device)
+    if b == 0 or m == 0:
+        return out
+    stream = torch.cuda.current_stream(blocks.device).cuda_stream
+    sms = torch.cuda.get_device_properties(blocks.device).multi_processor_count
+    L1_ROWS.launch(
+        blocks.device.index,
+        ctypes.c_void_p(q.data_ptr()),
+        ctypes.c_void_p(c.data_ptr()),
+        ctypes.c_void_p(t.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()),
+        b,
+        m,
+        l,
+        d16 // 16,
+        sms * _ROWS_BLOCKS_PER_SM,
+        ctypes.c_void_p(stream),
+    )
+    return out
+
+
+def l1_rows(blocks: torch.Tensor, cand: torch.Tensor, lib: torch.Tensor) -> torch.Tensor:
+    """dist[i, j] = exact L1(blocks[i], lib[min(cand[i, j], L-1)]).
+
+    blocks [B, D] u8, cand [B, m] int32, lib [L, D] u8 (L >= 1), all on one
+    device. A CUDA tensor goes to K3 (`csrc/l1_rows.cu`) for every D from 3
+    to 49152 and libraries past 4 GiB; a CPU tensor to `_l1_rows_ref`.
+    Returns int32 [B, m] on that device.
+    """
+    if blocks.dtype != torch.uint8 or lib.dtype != torch.uint8:
+        raise TypeError(f"l1_rows takes uint8, got {blocks.dtype}/{lib.dtype}")
+    if cand.dtype != torch.int32:
+        raise TypeError(f"l1_rows takes int32 candidates, got {cand.dtype}")
+    if (
+        blocks.dim() != 2 or lib.dim() != 2 or cand.dim() != 2
+        or blocks.shape[1] != lib.shape[1] or cand.shape[0] != blocks.shape[0]
+    ):
+        raise ValueError(
+            f"shapes {tuple(blocks.shape)} / {tuple(cand.shape)} / {tuple(lib.shape)}"
+        )
+    if lib.shape[0] == 0:
+        raise ValueError("empty library")
+    if not (blocks.device == cand.device == lib.device):
+        raise ValueError(f"devices differ: {blocks.device} / {cand.device} / {lib.device}")
+    if blocks.device.type == "cpu":
+        return _l1_rows_ref(blocks, cand, lib)
+    if blocks.device.type != "cuda":
+        raise ValueError(f"unsupported device {blocks.device}")
+    return _l1_rows_cuda(blocks, cand, lib)
+
+
+def _ad_rescore(x, keys, s_min, lib_pad, *, m: int, k: int, real_l: int):
+    """Steps 2-4: the m least coarse survivors as candidates, their exact
+    distances (K3 on the card), the (distance, row) finish and the
+    certificate. Returns (dists [r, k] i32, rows [r, k] i32, ok [r] bool)
+    on the device."""
+    sel = _least(keys, m + 1)
+    cand = (sel[:, :m] & _MASK32).to(torch.int32)  # library rows
+    c_next = torch.minimum(s_min, (sel[:, m] >> 32).to(torch.int32))
+    del sel
+    dist = l1_rows(x, cand, lib_pad)
+    dist.masked_fill_(cand >= real_l, I32_MAX)
+    dd, rr = _topk_rows(dist, k, cand)
+    return dd, rr, c_next > dd[:, k - 1]
+
+
+def _run_block_slices(x, b_slice: int, kk: int, run_slice):
+    """Drive `run_slice` over b_slice-row windows of x and assemble
+    (dists, rows, ok) on the host."""
+    b = x.shape[0]
+    out_d = np.empty((b, kk), np.int32)
+    out_r = np.empty((b, kk), np.int32)
+    ok_all = np.empty(b, bool)
+    for s0 in range(0, b, b_slice):
+        dists, rows, ok = run_slice(x[s0 : s0 + b_slice])
+        out_d[s0 : s0 + b_slice] = _host(dists)
+        out_r[s0 : s0 + b_slice] = _host(rows)
+        ok_all[s0 : s0 + b_slice] = _host(ok)
+    return out_d, out_r, ok_all
+
+
+def _ad_prepare(lib, d: int, b: int | None = None, k: int | None = None, *, device=None):
+    """Pad and upload a library for `l1_topk_adaptive(prepared=...)`: the
+    padding and upload the scorer does itself, factored out so
+    `l1_topk_streamed` can upload the next bank from a worker thread while
+    the current one scores. Returns the handle (lib_pad on the device,
+    rows), or None for a query shape (`b`, `k`) that `_ad_plan` routes to
+    the two-level scorer, which ignores the handle."""
+    lib = _as_u8(lib)
+    l = lib.shape[0]
+    dev = lib.device if device is None else torch.device(device)
+    if b is not None and k is not None and not _ad_plan(b, l, d, k, device=dev)[0]:
+        return None
+    lp = -(-l // _TL_SEG) * _TL_SEG
+    return (_pad_lib(lib, lp, dev), l)
+
+
+def _check_ad_prepared(prepared, l: int, lp: int, d: int):
+    """Shape-check an `_ad_prepare` handle against THIS library (a
+    mismatched handle would silently score the wrong rows); returns the
+    padded device library."""
+    lib_pad, rows_pre = prepared
+    if rows_pre != l or lib_pad.numel() != lp * d:
+        raise ValueError(
+            f"prepared banks cover {rows_pre} rows x {lib_pad.numel()} "
+            f"elements; this library needs {l} rows x {lp * d}"
+        )
+    return lib_pad
+
+
+# ---------------------------------------------------------------------------
+# Certificate self-audit
+#
+# The certificate trusts the coarse stage's own outputs, so a fault inside
+# a stage is invisible to it. After every certified adaptive run at a
+# large library, a random sample of blocks is rescored through the
+# independent stripe scorer (no projection, no K3) and compared bit for
+# bit; a mismatch prints a loud warning and rescored every block that way.
+# ---------------------------------------------------------------------------
+
+#: audit every certified adaptive run whose library has at least this
+#: many rows. Override with EMOSAIC_AUDIT_ROWS; disable with
+#: EMOSAIC_AUDIT=0; sample size via EMOSAIC_AUDIT_SAMPLE.
+_AUDIT_MIN_ROWS = 1 << 19
+#: f32 bytes of one library chunk of the audit's stripe scorer
+_AUDIT_CHUNK_BYTES = 3 << 30
+
+
+def _fold_topk_host(best_d, best_r, cd, cr, kk: int, l: int):
+    """Fold one candidate chunk into a host-side running top-kk under the
+    packed int64 (distance, lowest GLOBAL row) key, the one exact
+    selection the streamed merge and the audit share. Padding entries
+    carry I32_MAX distances and always lose; callers re-zero their rows
+    at the end. (best_d is None) starts the fold."""
+    if best_d is None:
+        return cd, cr
+    cat_d = np.concatenate([best_d, cd], axis=1)
+    cat_r = np.concatenate([best_r, cr], axis=1)
+    key = cat_d.astype(np.int64) * (l + 1) + cat_r
+    part = np.argpartition(key, kk - 1, axis=1)[:, :kk]
+    order = np.argsort(np.take_along_axis(key, part, axis=1), axis=1)
+    sel = np.take_along_axis(part, order, axis=1)
+    return (
+        np.take_along_axis(cat_d, sel, axis=1),
+        np.take_along_axis(cat_r, sel, axis=1),
+    )
+
+
+def _stripes_banked(blocks, lib_dev, l: int, d: int, kk: int):
+    """Exact top-kk per block over the device library `lib_dev` (rows past
+    `l` are padding), by the stripe scorer in bounded row chunks folded
+    with `_fold_topk_host`. Independent of the adaptive stages: the
+    audit's ground truth, and its loud fallback."""
+    b = blocks.shape[0]
+    ch = max(_TL_SEG, _AUDIT_CHUNK_BYTES // (4 * d) // _TL_SEG * _TL_SEG)
+    best_d = best_r = None
+    for lo in range(0, l, ch):
+        cl = min(ch, l - lo)
+        kc = min(kk, cl)
+        cd, cr = l1_topk_stripes(blocks, lib_dev[lo : lo + cl], kc, device=lib_dev.device)
+        cr = cr + lo
+        if kc < kk:  # chunk shorter than k: pad losers
+            cd = np.concatenate([cd, np.full((b, kk - kc), I32_MAX, np.int32)], axis=1)
+            cr = np.concatenate([cr, np.zeros((b, kk - kc), np.int32)], axis=1)
+        best_d, best_r = _fold_topk_host(best_d, best_r, cd, cr, kk, l)
+    best_r = np.where(best_d == I32_MAX, 0, best_r)
+    return best_d, best_r
+
+
+def _audit_would_run(l: int, b: int, kk: int) -> bool:
+    """Whether `_ad_audit` scores at this geometry, under the same env
+    knobs it reads."""
+    if os.environ.get("EMOSAIC_AUDIT", "1") == "0":
+        return False
+    min_rows = int(os.environ.get("EMOSAIC_AUDIT_ROWS", str(_AUDIT_MIN_ROWS)))
+    return l >= min_rows and b > 0 and kk > 0
+
+
+def _ad_audit(out_d, out_r, blocks, lib_dev, l: int, d: int, kk: int, *, label):
+    """Post-hoc exactness audit of a certified adaptive result. Returns
+    (out_d, out_r) unchanged when the sample equals the stripe scorer bit
+    for bit, else the stripe scorer's result for every block, after a
+    loud warning on stderr."""
+    b = blocks.shape[0]
+    if not _audit_would_run(l, b, kk):
+        return out_d, out_r
+    ns = min(b, max(1, int(os.environ.get("EMOSAIC_AUDIT_SAMPLE", "32"))))
+    rng = np.random.default_rng(0xAD17 + 31 * b + l)
+    idx = np.sort(rng.choice(b, size=ns, replace=False))
+    ad, ar = _stripes_banked(
+        blocks[torch.from_numpy(idx).to(blocks.device)], lib_dev, l, d, kk
+    )
+    row_ok = (ad == out_d[idx]).all(axis=1) & (ar == out_r[idx]).all(axis=1)
+    if row_ok.all():
+        return out_d, out_r
+    print(
+        f"⚠️  EXACTNESS AUDIT FAILED ({label}): "
+        f"{int((~row_ok).sum())}/{ns} sampled blocks disagree with the "
+        f"independent stripe oracle at L={l} D={d} — the certificate "
+        f"cannot be trusted for this run; re-scoring all {b} blocks "
+        "through the oracle (exact, slower)",
+        file=sys.stderr,
+    )
+    return _stripes_banked(blocks, lib_dev, l, d, kk)
+
+
+def l1_topk_adaptive(
+    blocks,
+    lib,
+    k: int,
+    *,
+    m: int = _AD_M,
+    cap: int = _AD_CAP,
+    prepared=None,
+    device=None,
+    stats: dict | None = None,
+):
+    """Exact k nearest rows per block, same contract and results as
+    `l1_topk_stripes`, via the adaptive coarse-to-fine certified scorer
+    (section comment above). Falls back to `l1_topk_twolevel` wholesale
+    when a sample chunk cannot certify (concentrated data), and per row to
+    the stripes for uncertified rows.
+
+    `prepared` is an `_ad_prepare` handle for THIS `lib` (the streamed
+    scorer's prefetch); results are bit-identical with or without it.
+    `stats`, when given, is filled with the route taken, the counts of
+    certified and fallback rows, and per-step seconds (the steps then end
+    in a synchronize).
+    """
+    blocks, lib = _as_u8(blocks), _as_u8(lib)
+    dev = _device_of(blocks, device)
+    b, d = blocks.shape
+    l = lib.shape[0]
+    st = stats if stats is not None else {}
+    st.update(route="adaptive", blocks=b)
+    if lib.numel() > DEVICE_LIB_BYTES_MAX and l > _TL_SEG:
+        # beyond the device budget: stream banks (each bank is under it,
+        # so the per-bank calls stay direct)
+        st["route"] = "streamed"
+        return l1_topk_streamed(blocks, lib, k, device=dev)
+    eligible, g, chan, kk, lp, nseg, m, cap, _ = _ad_plan(
+        b, l, d, k, m, cap, device=dev
+    )
+    if not eligible:
+        st["route"] = "twolevel (ineligible shape)"
+        return l1_topk_twolevel(blocks, lib, k, device=dev)
+    t0 = time.perf_counter()
+    if prepared is not None:
+        lib_pad = _check_ad_prepared(prepared, l, lp, d)
+    else:
+        lib_pad = _pad_lib(lib, lp, dev)
+    lib_dev = lib_pad[:l]
+    x = blocks.to(dev)
+    bc = min(_STRIPE_BC, max(8, 1 << (b - 1).bit_length()))
+    b_slice = _ad_b_slice(nseg, cap, bc)
+    coarse_lib = _ad_coarse_lib(lib_pad, d, g, chan, l)
+    if stats is not None:
+        _sync(dev)
+    timed = {"prepare_s": time.perf_counter() - t0, "coarse_s": 0.0, "rescore_s": 0.0}
+
+    def run(xs):
+        t1 = time.perf_counter()
+        keys, s_min = _ad_coarse(xs, coarse_lib, d, g, chan, cap)
+        if stats is not None:
+            _sync(dev)
+        t2 = time.perf_counter()
+        out = _ad_rescore(xs, keys, s_min, lib_pad, m=m, k=kk, real_l=l)
+        if stats is not None:
+            _sync(dev)
+        timed["coarse_s"] += t2 - t1
+        timed["rescore_s"] += time.perf_counter() - t2
+        return out
+
+    # adaptivity gate: one sample chunk through the whole pipeline; data
+    # no lossy projection can prune (uniform noise) fails it
+    if b > bc:
+        _, _, ok_s = run(x[:bc])
+        if ok_s.float().mean().item() < 0.5:
+            st["route"] = "twolevel (sample gate)"
+            return l1_topk_twolevel(x, lib_dev, k, device=dev)
+    out_d, out_r, ok_all = _run_block_slices(x, b_slice, kk, run)
+    st.update(timed, certified=int(ok_all.sum()))
+    t1 = time.perf_counter()
+    bad = np.flatnonzero(~ok_all)
+    out_d, out_r = _stripe_fallback(out_d, out_r, bad, x, lib_dev, kk, device=dev)
+    t2 = time.perf_counter()
+    out_d, out_r = _ad_audit(
+        out_d, out_r, x, lib_dev, l, d, kk, label="l1_topk_adaptive"
+    )
+    st.update(
+        fallback=int(bad.size),
+        fallback_s=t2 - t1,
+        audit=_audit_would_run(l, b, kk),
+        audit_s=time.perf_counter() - t2,
+        total_s=time.perf_counter() - t0,
+    )
+    return _pad_topk(out_d, out_r, b, k, kk)
+
+
+#: the streamed scorer's prefetch protocol: scorers exposing `prepare`
+#: get next-bank uploads issued from a worker thread (l1_topk_streamed)
+l1_topk_adaptive.prepare = _ad_prepare
+
+
+def _stream_bank_rows(d: int) -> int:
+    """Rows per streamed bank: the device budget's worth of rows, a
+    multiple of 128 (`_TL_SEG`), at least one segment."""
+    return max(_TL_SEG, DEVICE_LIB_BYTES_MAX // max(d, 1) // _TL_SEG * _TL_SEG)
+
+
+def l1_topk_streamed(blocks, lib, k: int, *, bank_rows: int | None = None,
+                     scorer=None, device=None):
+    """Exact k nearest rows per block, same contract and results as
+    `l1_topk_stripes`, for libraries too large to keep on the device
+    (`DEVICE_LIB_BYTES_MAX`): each `bank_rows`-row bank is scored with the
+    certified adaptive scorer, and the banks fold with an exact
+    (distance, global row) merge on the host. Every global top-k member is
+    in its own bank's top-k, so the union of the bank lists holds it.
+
+    `scorer` replaces the per-bank scorer (default: `l1_topk_adaptive` on
+    `device`). When it has a `prepare(lib_slice, d, b, k)` attribute, the
+    next bank is uploaded from a worker thread while the current one
+    scores, and its handle comes back through `prepared=`; two banks are
+    then resident, so automatic banks halve. An explicit `bank_rows` is
+    clamped to the budget; when two of them do not fit, the upload runs
+    serially. EMOSAIC_STREAM_PREFETCH=0 disables the prefetch. Results are
+    bit-identical either way.
+    """
+    blocks, lib = _as_u8(blocks), _as_u8(lib)
+    dev = _device_of(blocks, device)
+    if scorer is None:
+
+        def score(bb, ll, kx, prepared=None):
+            return l1_topk_adaptive(bb, ll, kx, prepared=prepared, device=dev)
+
+        score.prepare = lambda ll, dd, b_=None, kx=None: _ad_prepare(
+            ll, dd, b_, kx, device=dev
+        )
+    else:
+        score = scorer
+    b, d = blocks.shape
+    l = lib.shape[0]
+    rb = _stream_bank_rows(d) if bank_rows is None else bank_rows
+    rb = max(_TL_SEG, min(rb, DEVICE_LIB_BYTES_MAX // d // _TL_SEG * _TL_SEG))
+    if b == 0:
+        # a direct empty result: re-entering a scorer would bounce off the
+        # oversized-library gates straight back here
+        return np.full((0, k), I32_MAX, np.int32), np.zeros((0, k), np.int32)
+    if l <= rb:
+        return score(blocks, lib, k)
+    prep = getattr(score, "prepare", None)
+    prefetch = prep is not None and os.environ.get(
+        "EMOSAIC_STREAM_PREFETCH", "1"
+    ) != "0"
+    if prefetch and bank_rows is None:
+        rb = max(
+            _TL_SEG,
+            min(rb, DEVICE_LIB_BYTES_MAX // 2 // d // _TL_SEG * _TL_SEG),
+        )
+    elif prefetch and 2 * rb * d > DEVICE_LIB_BYTES_MAX:
+        print(
+            f"   stream prefetch disabled: two explicit {rb}-row banks "
+            "exceed the device-resident budget; uploading serially",
+            file=sys.stderr,
+        )
+        prefetch = False
+    kk = min(k, l)
+    offs = range(0, l, rb)
+
+    def bank_results():
+        if not prefetch:
+            for off in offs:
+                dd, rr = score(blocks, lib[off : off + rb], kk)
+                yield off, dd, rr
+            return
+        with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
+            fut = ex.submit(prep, lib[:rb], d, b, kk)
+            for off in offs:
+                handle = fut.result()
+                if off + rb < l:
+                    fut = ex.submit(prep, lib[off + rb : off + 2 * rb], d, b, kk)
+                dd, rr = score(blocks, lib[off : off + rb], kk, prepared=handle)
+                yield off, dd, rr
+
+    best_d = best_r = None
+    for off, dd, rr in bank_results():
+        rr = rr + off  # global rows (padding entries re-zeroed below)
+        best_d, best_r = _fold_topk_host(best_d, best_r, dd, rr, kk, l)
+    best_r = np.where(best_d == I32_MAX, 0, best_r)
+    return _pad_topk(best_d, best_r, b, k, kk)
+
+
+# ---------------------------------------------------------------------------
+# Batched device refill for the no-repeat assignment engine
+#
+# Under tail contention the C++ engine's host refill (a masked scan per
+# exhausted block) dominates assignment. The device refiller replaces it
+# with one stripe + packed-key top-k per refill event, covering every
+# nearly-dry block, over the library COMPACTED to its unused rows. The
+# compaction index ascends, so the (distance, position) order is the
+# (distance, row) order.
+# ---------------------------------------------------------------------------
+
+#: host-scan refill events a cold DeviceRefiller absorbs before paying its
+#: blocks + library upload (EMOSAIC_DEVICE_REFILL_DEFER overrides; warm()
+#: uploads at once)
+_REFILL_DEFER_EVENTS = 256
+
+
+class _DeferRefill(Exception):
+    """Raised to route one refill event back to the host masked scan.
+
+    `expected_fallback` marks it as deliberate control flow for the
+    native trampoline (native.py, which does not import this module)."""
+
+    expected_fallback = True
+
+
+def _refill_topk(blocks_dev, ids_dev, sub, unused_dev, kk: int):
+    """Exact ascending (distance, row) top-kk of each queried block over
+    the compacted unused rows `sub` (library rows `unused_dev`, ascending).
+    Returns host int32 (dists [M, kk], rows [M, kk])."""
+    dist = l1_block(blocks_dev.index_select(0, ids_dev), sub)
+    dd, pos = _topk_rows(dist, kk)
+    return _host(dd), _host(unused_dev[pos.to(torch.int64)].to(torch.int32))
+
+
+class DeviceRefiller:
+    """Batched masked top-k refill engine (native.greedy_global callback).
+
+    Callable as (block_ids [M] int, used uint8/bool [L]) ->
+    (dists [M, k] int32, rows [M, k] int32), ascending (distance, row)
+    over the rows with used[r] == 0, I32_MAX-padded: the exact contract of
+    the C++ engine's host masked scan (and of rendering.rs:383-385's live
+    kd-tree re-fetch, whose mutating tree this mask replaces).
+
+    The library goes to the blocks' device on the first refill event and
+    stays there across events.
+    """
+
+    def __init__(self, blocks, lib, *, k: int = 256, defer_events: int | None = None):
+        self._blocks = _as_u8(blocks)
+        self._lib = _as_u8(lib)
+        self.device = self._blocks.device
+        self.b, self.d = self._blocks.shape
+        self.l = self._lib.shape[0]
+        self.k = k
+        #: public: the query-batch capacity per device call; callers cap
+        #: their refill batches to it (render/norepeat.py)
+        self.max_batch = 1 << (min(self.b, 4096) - 1).bit_length()
+        self._blocks_dev = None
+        self._lib_dev = None
+        self.n_calls = 0
+        if defer_events is None:
+            defer_events = int(
+                os.environ.get("EMOSAIC_DEVICE_REFILL_DEFER", _REFILL_DEFER_EVENTS)
+            )
+        self.defer_events = defer_events
+        self.n_deferred = 0
+
+    def _oversized(self) -> bool:
+        return self._lib.numel() > DEVICE_LIB_BYTES_MAX
+
+    def _upload(self) -> None:
+        self._blocks_dev = self._blocks.to(self.device)
+        self._lib_dev = self._lib.to(self.device)
+
+    def warm(self) -> None:
+        """Upload blocks and library before assignment, so the first refill
+        event does not pay it mid-run."""
+        if self._oversized():
+            return  # beyond-budget library: events stay on the host scan
+        if self._blocks_dev is None:
+            self._upload()
+
+    def __call__(self, ids: np.ndarray, used: np.ndarray):
+        m = len(ids)
+        out_d = np.full((m, self.k), I32_MAX, np.int32)
+        out_r = np.zeros((m, self.k), np.int32)
+        unused = np.flatnonzero(np.asarray(used) == 0)
+        if unused.size == 0:
+            return out_d, out_r
+        if self._oversized():
+            # the upload would overflow the card: keep EVERY event on the
+            # engine's exact host scan
+            raise _DeferRefill(-1)
+        if self._blocks_dev is None and self.n_deferred < self.defer_events:
+            # cold: absorb early events on the host scan until the upload
+            # is worth paying
+            self.n_deferred += 1
+            raise _DeferRefill(self.n_deferred)
+        if self._blocks_dev is None:
+            self._upload()
+        kk = min(self.k, unused.size)
+        unused_dev = torch.from_numpy(unused).to(self.device)
+        sub = self._lib_dev.index_select(0, unused_dev)
+        ids = torch.from_numpy(np.asarray(ids, dtype=np.int64))
+        for lo in range(0, m, self.max_batch):  # normally a single chunk
+            chunk = ids[lo : lo + self.max_batch].to(self.device)
+            dd, rr = _refill_topk(self._blocks_dev, chunk, sub, unused_dev, kk)
+            self.n_calls += 1
+            out_d[lo : lo + self.max_batch, :kk] = dd
+            out_r[lo : lo + self.max_batch, :kk] = rr
+        return out_d, out_r

@@ -1,1 +1,2 @@
-"""Renderers: the matched (repeat) render of the default mosaic path."""
+"""Renderers: matched (repeat / randomize / greedy no-repeat) and global-greedy
+no-repeat."""

@@ -1,18 +1,31 @@
 """Matched renderer (reference: rendering.rs:124-230 `render_nto1`).
 
-The torch counterpart of `emosaic_tpu/render/matched.py` for the repeat
-path: source -> block vectors (device) -> exact L1 match (the mode-1 LUT,
-or the argmin kernel after an optional dedup of repeated blocks) ->
-signed item grid -> device composite.
+The torch counterpart of `emosaic_tpu/render/matched.py`: source -> block
+vectors (device) -> exact L1 match (the mode-1 LUT, or the argmin kernel
+after an optional dedup of repeated blocks), or exact top-k candidates
+and a randomized or in-render no-repeat choice -> signed item grid ->
+device composite.
 
-Stats record *source-pixel* coordinates (rendering.rs:211-214), a quirk
-kept from the reference.
+Parity notes (as in the JAX package):
+- stats record *source-pixel* coordinates (rendering.rs:211-214), a quirk
+  kept from the reference (the global no-repeat renderer records output
+  coordinates).
+- `--randomize f`: 20 nearest, keep the ascending prefix with
+  `dist - min < f% * min`, choose uniformly (rendering.rs:168-185); the
+  best match is always eligible (the reference panics when min == 0), and
+  the choice uses an explicit seed.
+- `--no-repeat --greedy` removes only the chosen orientation, in render
+  order (rendering.rs:163-167, :207-209): rows in sequence, a seeded
+  shuffle within each row (rendering.rs:73-74).
+- `--no-repeat --randomize` deadlocks the reference (rendering.rs:163-174);
+  here it raises ValueError.
 """
 
 from __future__ import annotations
 
 import math
 import sys
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -20,11 +33,19 @@ import torch
 
 from emosaic_tpu_torch.ops.analysis import source_blocks, to_device_u8
 from emosaic_tpu_torch.ops.composite import compose_mosaic
-from emosaic_tpu_torch.ops.distance import build_library, l1_argmin, rows_to_items
+from emosaic_tpu_torch.ops.distance import (
+    build_library,
+    l1_argmin,
+    l1_topk,
+    rows_to_items,
+)
 from emosaic_tpu_torch.ops.lut import MAX_ROWS, build_l1_lut, lut_match
+from emosaic_tpu_torch.render.greedy import greedy_sequence_assign, make_numpy_refill
 from emosaic_tpu_torch.stats import RenderStats
 from emosaic_tpu_torch.tiles.tileset import TileSet
 
+_DEFAULT_RANDOM_NEIGHBORS = 20  # RenderConfig (rendering.rs:29-36)
+_GREEDY_TOPK = 64
 _LUT_MIN_BLOCKS = 4096  # below this, brute force beats the LUT build cost
 
 
@@ -36,6 +57,7 @@ class RenderOutcome:
     stats: RenderStats
     tile_set: TileSet
     items: np.ndarray | None = None  # [vtiles, htiles] signed item grid
+    info: dict | None = None  # the no-repeat renderer's scoring record
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -45,10 +67,19 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
-def start_render(source_img, tile_set, tile_size, log, *, device):
-    """Shared render prologue: grid math, the 'Doing WxH tiles...' line,
-    and the device blocks and library. Returns
-    (dim, htiles, vtiles, blocks, lib)."""
+def insufficient_tiles_check(n_blocks: int, n_tiles: int) -> None:
+    """rendering.rs:150-156 / :288-294."""
+    if n_blocks > n_tiles * 2:
+        raise ValueError(
+            f"❌ Insufficient tiles for no-repeat mode: need {n_blocks} tiles "
+            f"but only have {n_tiles * 2} available"
+        )
+
+
+def start_render(source_img, tile_set, tile_size, log, *, device, check_tiles=False):
+    """Shared render prologue (both renderers): grid math, the 'Doing WxH
+    tiles...' line, the no-repeat tile-count check, and the device blocks
+    and library. Returns (dim, htiles, vtiles, blocks, lib)."""
     dim = math.isqrt(tile_set.n_cells)
     h, w = source_img.shape[0], source_img.shape[1]
     htiles, vtiles = w // dim, h // dim
@@ -56,6 +87,8 @@ def start_render(source_img, tile_set, tile_size, log, *, device):
         f"Doing {htiles}x{vtiles} tiles resulting in a "
         f"{htiles * tile_size}x{vtiles * tile_size} image (step: {dim})"
     )
+    if check_tiles:
+        insufficient_tiles_check(htiles * vtiles, len(tile_set))
     blocks = source_blocks(source_img, dim, device=device)  # [B, 3N], y-major
     lib = build_library(to_device_u8(tile_set.palettes, device))  # [2T, 3N]
     return dim, htiles, vtiles, blocks, lib
@@ -63,10 +96,13 @@ def start_render(source_img, tile_set, tile_size, log, *, device):
 
 def finish_render(
     rows, dists, vtiles, htiles, tile_set, stats_step, tile_size, *,
-    stack, compose, device,
+    stack, compose, device, timed_log=None,
 ) -> RenderOutcome:
     """Shared render epilogue: items grid (unassigned -> black), stats,
-    optional composite. `rows`, `dists` are host int32 arrays."""
+    optional composite. `rows`, `dists` are host int32 arrays.
+    `stats_step` carries the reference's coordinate quirk (source pixels
+    for matched modes, output pixels for global no-repeat); `timed_log`
+    adds the no-repeat path's compose timing line."""
     num_tiles = len(tile_set)
     items = rows_to_items(torch.from_numpy(rows), num_tiles).numpy()
     items = np.where(rows < 0, 0, items)  # unassigned -> black
@@ -80,9 +116,12 @@ def finish_render(
     )
     image = None
     if compose:
+        t0 = time.perf_counter()
         if stack is None:
             stack = tile_set.image_stack(tile_size)
         image = compose_mosaic(items_grid, stack, device=device)
+        if timed_log is not None:
+            timed_log(f"   compose: {time.perf_counter() - t0:.2f}s")
     return RenderOutcome(
         image=image, stats=stats, tile_set=tile_set, items=items_grid
     )
@@ -125,23 +164,66 @@ def render_nto1(
     randomize: float | None = None,
     *,
     device,
+    seed: int = 0,
     use_lut: str = "auto",
     stack: np.ndarray | None = None,
     compose: bool = True,
     log=lambda *a: print(*a, file=sys.stderr),
 ) -> RenderOutcome:
-    """Render the matched (repeat) mosaic of `source_img` on `device`."""
-    if no_repeat:
-        raise _not_ported("--no-repeat", "render/norepeat.py + greedy.py")
-    if randomize is not None:
-        raise _not_ported("--randomize", "ops/distance.py slice B (exact top-k)")
+    """Render the matched mosaic of `source_img` on `device`: the exact
+    match, or with `randomize` a seeded choice among the near-best, or with
+    `no_repeat` the in-render no-repeat choice."""
+    if no_repeat and randomize is not None:
+        raise ValueError(
+            "no_repeat + randomize is unsupported (the reference deadlocks "
+            "on this combination, rendering.rs:163-174)"
+        )
     if len(tile_set) == 0:
         # the reference panics deep in the kd-tree here; fail clearly
         raise ValueError("❌ No tiles available for matching")
     dim, htiles, vtiles, blocks, lib = start_render(
-        source_img, tile_set, tile_size, log, device=device
+        source_img, tile_set, tile_size, log, device=device, check_tiles=no_repeat
     )
-    dists, rows = match_blocks(blocks, lib, use_lut=use_lut)
+    if (no_repeat or randomize is not None) and use_lut != "auto":
+        # these branches always score with the exact L1 top-k: the match
+        # path's knob would otherwise be dropped silently
+        log(
+            f"⚠️  --matcher {use_lut} ignored: "
+            f"{'randomize' if randomize is not None else 'greedy no-repeat'} "
+            "always scores with the exact L1 top-k"
+        )
+    rng = np.random.default_rng(seed)
+    if randomize is not None:
+        k = min(_DEFAULT_RANDOM_NEIGHBORS, lib.shape[0])
+        cd, cr = l1_topk(blocks, lib, k)
+        mins = cd[:, 0].astype(np.float64)
+        eligible = (cd.astype(np.float64) - mins[:, None]) < (
+            float(randomize) * mins[:, None] / 100.0
+        )
+        eligible[:, 0] = True  # deviation: avoid the reference's min==0 panic
+        counts = eligible.sum(axis=1)
+        pick = (rng.random(len(blocks)) * counts).astype(np.int64)
+        rows = np.take_along_axis(cr, pick[:, None], axis=1)[:, 0]
+        dists = np.take_along_axis(cd, pick[:, None], axis=1)[:, 0]
+    elif no_repeat:
+        k = min(_GREEDY_TOPK, lib.shape[0])
+        cd, cr = l1_topk(blocks, lib, k)
+        # render order: rows in sequence, x shuffled per row
+        order = np.concatenate(
+            [by * htiles + rng.permutation(htiles) for by in range(vtiles)]
+        )
+        from emosaic_tpu_torch import native
+
+        blocks_h, lib_h = blocks.cpu().numpy(), lib.cpu().numpy()
+        if native.available():
+            rows, dists = native.greedy_sequence(order, cd, cr, blocks_h, lib_h)
+        else:
+            refill = make_numpy_refill(blocks_h, lib_h)
+            rows, dists = greedy_sequence_assign(
+                order, cd, cr, lib.shape[0], refill
+            )
+    else:
+        dists, rows = match_blocks(blocks, lib, use_lut=use_lut)
     # stats_step=dim: source-pixel coords (rendering.rs:211-214)
     return finish_render(
         rows, dists, vtiles, htiles, tile_set, dim, tile_size,

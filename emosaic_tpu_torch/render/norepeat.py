@@ -1,0 +1,151 @@
+"""Global-greedy no-repeat renderer (reference: rendering.rs:262-401).
+
+The torch counterpart of `emosaic_tpu/render/norepeat.py`. Two phases:
+1. Scoring: the reference fetches 100 000 NN per block (rendering.rs:
+   307-321), which under its 32 767-tile cap is the full sorted list. Here
+   the device scorers produce the lists in one batch: the full sorted list
+   while B * L is affordable (`exact-full`), else an exact 512-entry prefix
+   from the adaptive certified scorer (`adaptive-exact`, whose shortlist
+   rescore is kernel K3) with exact masked refills during assignment.
+2. Assignment: best-match-first priority queue with mirror-pair exclusion
+   (render/greedy.py, or the native engine), exactly the worklist
+   semantics of rendering.rs:323-392.
+
+Stats record *output-pixel* coordinates (rendering.rs:357-364), unlike
+`render_nto1` (a quirk kept from the reference).
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from emosaic_tpu_torch.ops import distance as _distance
+from emosaic_tpu_torch.ops.distance import (
+    DeviceRefiller,
+    l1_dist_matrix,
+    l1_topk_adaptive,
+)
+from emosaic_tpu_torch.render.greedy import greedy_global_assign, make_numpy_refill
+from emosaic_tpu_torch.render.matched import (
+    RenderOutcome,
+    _not_ported,
+    finish_render,
+    start_render,
+)
+from emosaic_tpu_torch.tiles.tileset import TileSet
+
+#: full-list (exact) mode is used while B * L stays under this many entries
+_EXACT_BUDGET = 2 * 10**8
+#: use the batched device refill (ops/distance.DeviceRefiller) once L * D
+#: makes the C++ engine's per-block host refill scan expensive. Output is
+#: bit-identical either way; EMOSAIC_DEVICE_REFILL=0/1 overrides.
+_DEVICE_REFILL_MIN_LD = 10**8
+#: exact candidates per block past _EXACT_BUDGET. Truncation does not
+#: change assignment results: the greedy engines refill exactly whenever a
+#: block exhausts its prefix, so K only trades scoring time against refill
+#: frequency.
+_TRUNCATED_K = 512
+
+
+def render_nto1_no_repeat(
+    source_img: np.ndarray,
+    tile_set: TileSet,
+    tile_size: int,
+    *,
+    device,
+    stack: np.ndarray | None = None,
+    compose: bool = True,
+    scorer: str = "exact",
+    mesh=None,
+    log=lambda *a: print(*a, file=sys.stderr),
+) -> RenderOutcome:
+    """Render the global-greedy no-repeat mosaic on `device`.
+
+    The outcome's `info` holds the scorer used, its statistics (route,
+    certified and fallback rows, per-step seconds), the assignment engine
+    and its device refill events, and the seconds of scoring, assignment
+    and compose (each ending in a synchronize)."""
+    if scorer not in ("exact", "hybrid"):
+        # fail loud: a typo would otherwise silently run the exact path
+        raise ValueError(f"scorer must be 'exact' or 'hybrid', got {scorer!r}")
+    if scorer == "hybrid":
+        raise _not_ported("--no-repeat --matcher hybrid", "5. hybrid and L2 matchers")
+    if mesh is not None:
+        raise _not_ported("--no-repeat --mesh", "6. parallel/ -> torch.distributed")
+    dim, htiles, vtiles, blocks, lib = start_render(
+        source_img, tile_set, tile_size, log, device=device, check_tiles=True
+    )
+    num_tiles = len(tile_set)
+    b, l = blocks.shape[0], lib.shape[0]
+    info = {}
+
+    t0 = time.perf_counter()
+    if b * l <= _EXACT_BUDGET and lib.numel() <= _distance.DEVICE_LIB_BYTES_MAX:
+        # the full sorted candidate list per block: the dense matrix on the
+        # device, a stable argsort on the host (a device top-k at k = L is
+        # far slower)
+        scorer_used = "exact-full"
+        dist = l1_dist_matrix(blocks, lib)
+        cr = np.argsort(dist, axis=1, kind="stable").astype(np.int32)
+        cd = np.take_along_axis(dist, cr, axis=1).astype(np.int32)
+    else:
+        # exact truncated lists from the adaptive certified scorer;
+        # concentrated data routes inside to the two-level scorer, with
+        # identical results
+        scorer_used = "adaptive-exact"
+        k = min(_TRUNCATED_K, l)
+        info["scoring"] = {}
+        cd, cr = l1_topk_adaptive(blocks, lib, k, stats=info["scoring"])
+    info["scorer"] = scorer_used
+    info["scoring_s"] = time.perf_counter() - t0
+    log(f"   scoring ({scorer_used}): {info['scoring_s']:.2f}s")
+    from emosaic_tpu_torch import native
+
+    t0 = time.perf_counter()
+    blocks_h = blocks.cpu().numpy()
+    lib_h = lib.cpu().numpy()
+    if native.available():
+        mode = os.environ.get("EMOSAIC_DEVICE_REFILL", "auto")
+        # read the budget at call time so tuning or a test's patch applies
+        oversized = lib.numel() > _distance.DEVICE_LIB_BYTES_MAX
+        want_dev = (
+            mode == "1"
+            or (mode not in ("0", "off") and l * lib.shape[1] >= _DEVICE_REFILL_MIN_LD)
+        ) and not oversized
+        if mode == "1" and oversized:
+            log(
+                "   EMOSAIC_DEVICE_REFILL=1 overridden: library exceeds the"
+                " device-resident budget; refills use the exact host scan"
+            )
+        refiller = DeviceRefiller(blocks, lib) if want_dev else None
+        rows, dists = native.greedy_global(
+            cd, cr, blocks_h, lib_h, num_tiles,
+            refill_cb=refiller,
+            cb_max_batch=refiller.max_batch if refiller else 4096,
+        )
+        info["engine"] = "native"
+        info["refill_events"] = refiller.n_calls if refiller else 0
+        if refiller is not None and refiller.n_calls:
+            log(f"   device refill events: {refiller.n_calls}")
+    else:
+        refill = make_numpy_refill(blocks_h, lib_h)
+        rows, dists = greedy_global_assign(cd, cr, l, num_tiles, refill)
+        info["engine"] = "python"
+    info["assign_s"] = time.perf_counter() - t0
+    log(f"   assignment: {info['assign_s']:.2f}s")
+
+    # stats_step=tile_size: output-pixel coords (rendering.rs:357-364)
+    t0 = time.perf_counter()
+    out = finish_render(
+        rows, dists, vtiles, htiles, tile_set, tile_size, tile_size,
+        stack=stack, compose=compose, device=device, timed_log=log,
+    )
+    _distance._sync(torch.device(device))
+    info["finish_s"] = time.perf_counter() - t0
+    out.info = info
+    return out

@@ -6,6 +6,8 @@ directory with its own prepared-tile cache. Output pixels, the stats PNG
 and the analysis cache must be equal. Also: the port reads the JAX
 package's analysis cache, imports neither jax nor emosaic_tpu, refuses
 `--device cuda` without a GPU, and refuses every flag it does not port.
+The no-repeat routes (`--no-repeat`, with and without `--greedy`) and
+`--randomize` are among the compared cases.
 """
 
 import io
@@ -78,6 +80,10 @@ CASES = {
     "tint": ["-m", "1", "--downsample", "2", "-t", "0.3"],
     "banded": ["-m", "2", "--stream-threshold", "0"],
     "banded-tint": ["-m", "1", "--downsample", "2", "-t", "0.5", "--stream-threshold", "0"],
+    # 16x10 = 160 blocks, at most the 240 rows of 120 tiles and their flips
+    "no-repeat": ["-m", "2", "--downsample", "3", "--no-repeat"],
+    "no-repeat-greedy": ["-m", "2", "--downsample", "3", "--no-repeat", "--greedy"],
+    "randomize": ["-m", "2", "--randomize", "10", "--seed", "3"],
 }
 
 
@@ -115,14 +121,15 @@ def test_port_reads_the_jax_analysis_cache(scene, tmp_path, monkeypatch):
     assert cache.read_bytes() == before
 
 
-def test_port_cli_imports_neither_jax_nor_emosaic_tpu(scene, tmp_path):
-    work = tmp_path / "hygiene"
+def _hygiene_run(scene, work, args):
+    """Run the port's CLI in a fresh process; it must finish without jax or
+    emosaic_tpu in sys.modules."""
     shutil.copytree(scene, work)
     code = (
         "import sys\n"
         "from emosaic_tpu_torch.cli import main\n"
-        "rc = main(['-s', '8', '-o', 'o.png', 'source.png', 'mosaic', 'tiles',"
-        " '-m', '2', '--device', 'cpu'])\n"
+        f"rc = main(['-s', '8', '-o', 'o.png', 'source.png', 'mosaic', 'tiles', *{args!r},"
+        " '--device', 'cpu'])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'emosaic_tpu'))\n"
         "assert rc == 0 and not bad, bad\n"
         "print('CLEAN')\n"
@@ -135,6 +142,16 @@ def test_port_cli_imports_neither_jax_nor_emosaic_tpu(scene, tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "CLEAN" in proc.stdout
     assert (work / "o.png").exists()
+
+
+def test_port_cli_imports_neither_jax_nor_emosaic_tpu(scene, tmp_path):
+    _hygiene_run(scene, tmp_path / "hygiene", ["-m", "2"])
+
+
+def test_port_no_repeat_cli_imports_neither_jax_nor_emosaic_tpu(scene, tmp_path):
+    """The no-repeat route (the top-k scorers, the native engine) and the
+    native trim of the tile prep stay jax-free too."""
+    _hygiene_run(scene, tmp_path / "hygiene", ["-m", "2", "--downsample", "3", "--no-repeat"])
 
 
 def test_device_cuda_without_gpu_raises(scene, tmp_path, monkeypatch):
@@ -154,8 +171,6 @@ def test_device_defaults_to_cuda():
 @pytest.mark.parametrize(
     "pre,post",
     [
-        ([], ["--no-repeat"]),
-        ([], ["--randomize", "10"]),
         ([], ["-m", "random"]),
         ([], ["--matcher", "xla"]),
         ([], ["--matcher", "hybrid"]),
@@ -171,6 +186,16 @@ def test_unported_flags_raise(scene, monkeypatch, pre, post):
     argv = [*pre, "-s", "16", "source.png", "mosaic", "tiles", *post, "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(argv)
+
+
+def test_no_repeat_with_randomize_is_refused_like_jax(scene, monkeypatch):
+    monkeypatch.chdir(scene)
+    argv = ["-s", "16", "source.png", "mosaic", "tiles", "-m", "2", "--downsample", "3",
+            "--no-repeat", "--greedy", "--randomize", "10"]
+    with pytest.raises(ValueError, match="deadlocks"):
+        jax_cli.main(argv)
+    with pytest.raises(ValueError, match="deadlocks"):
+        cli.main([*argv, "--device", "cpu"])
 
 
 def test_distributed_env_raises(scene, monkeypatch):

@@ -1,4 +1,4 @@
-"""K1 and K2 against their plain torch versions on an NVIDIA GPU.
+"""K1, K2 and K3 against their plain torch versions on an NVIDIA GPU.
 
 A CUDA kernel has no CPU mode, so these tests are marked `cuda` and skip
 on a host without a GPU. This file imports neither jax nor the JAX
@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from emosaic_tpu_torch.ops import composite, distance
-from emosaic_tpu_torch.ops._kernels import COMPOSE, L1_ARGMIN
+from emosaic_tpu_torch.ops._kernels import COMPOSE, L1_ARGMIN, L1_ROWS
 
 pytestmark = pytest.mark.cuda
 
@@ -66,3 +66,42 @@ def test_k2_matches_plain(cuda, t, ts, nby, nbx):
     torch.cuda.synchronize()
     assert COMPOSE.launches == before + 1
     assert torch.equal(got, composite.compose_rows_ref(it, aug))
+
+
+@pytest.mark.parametrize(
+    "b,l,d,m",
+    [(3, 50, 3, 1), (5, 300, 12, 7), (4, 1000, 48, 64), (9, 700, 192, 33),
+     (6, 900, 768, 1024), (33, 2000, 3072, 64), (2, 64, 49152, 7), (17, 400, 75, 5)],
+)
+def test_k3_matches_plain(cuda, b, l, d, m):
+    rng = np.random.default_rng(b * 13 + d)
+    blocks, lib = _u8(rng, (b, d), cuda), _u8(rng, (l, d), cuda)
+    cand = rng.integers(0, l + 3, size=(b, m)).astype(np.int32)  # past L clamps
+    cand[0, 0], cand[-1, -1] = 0, l - 1
+    c = torch.from_numpy(cand).to(cuda)
+    before = L1_ROWS.launches
+    got = distance.l1_rows(blocks, c, lib)
+    torch.cuda.synchronize()
+    assert L1_ROWS.launches == before + 1
+    assert torch.equal(got, distance._l1_rows_ref(blocks, c, lib))
+
+
+def test_k3_repeated_candidates_and_adaptive_scorer(cuda):
+    """Repeated candidates, and the adaptive scorer on the card (K3 in its
+    rescore) equal to the same scorer on the CPU."""
+    rng = np.random.default_rng(11)
+    bases = rng.integers(0, 256, size=(40, 48))
+    lib = np.clip(np.repeat(bases, 250, axis=0) + rng.integers(-5, 6, (10000, 48)), 0, 255)
+    lib = lib.astype(np.uint8)
+    blocks = np.clip(lib[rng.integers(0, 10000, 300)].astype(int) + rng.integers(-3, 4, (300, 48)), 0, 255)
+    blocks = blocks.astype(np.uint8)
+    before = L1_ROWS.launches
+    got = distance.l1_topk_adaptive(torch.from_numpy(blocks).to(cuda), torch.from_numpy(lib).to(cuda), 8)
+    assert L1_ROWS.launches > before
+    want = distance.l1_topk_adaptive(torch.from_numpy(blocks), torch.from_numpy(lib), 8)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    c = torch.zeros((4, 100), dtype=torch.int32, device=cuda)
+    t = _u8(rng, (10, 48), cuda)
+    q = _u8(rng, (4, 48), cuda)
+    assert torch.equal(distance.l1_rows(q, c, t), distance._l1_rows_ref(q, c, t))

@@ -63,12 +63,12 @@ def test_match_blocks_dedup_route_matches_jax(rng):
 
 
 def test_render_refuses_unported_routes_and_empty_sets(rng):
+    """No route of `render_nto1` is unported any more: what it refuses is
+    what the JAX package refuses (no-repeat with randomize, an empty set)."""
     ts, _ = _sets(rng, 4, 1)
     src = np.zeros((4, 4, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        matched.render_nto1(src, ts, 8, no_repeat=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        matched.render_nto1(src, ts, 8, randomize=10.0, device="cpu")
+    with pytest.raises(ValueError, match="deadlocks"):
+        matched.render_nto1(src, ts, 8, no_repeat=True, randomize=10.0, device="cpu")
     empty = TileSet.from_arrays(np.zeros((0, 1, 3), np.uint8), [])
     with pytest.raises(ValueError, match="No tiles"):
         matched.render_nto1(src, empty, 8, device="cpu")
