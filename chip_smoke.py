@@ -7,30 +7,42 @@ Run from the root of a checkout. Phases, each printing its own lines:
 
   A  environment: torch/CUDA versions, the card's name and power limit,
      nvcc, and a GPU, or it stops;
-  B  build: the three CUDA kernels from `emosaic_tpu_torch/csrc/` (one
+  B  build: the four CUDA kernels from `emosaic_tpu_torch/csrc/` (one
      nvcc each, started together) and the native C++ greedy engine;
   C  each kernel against its plain torch version on the card, exactly:
-     K1 (L1 argmin), K2 (composite) and K3 (shortlist rescore) at test
-     and main-path shapes, K3 also past a 4 GiB library; the tint over
-     all 256 alphas x 65536 pairs, the card's LUT against the CPU's, and
-     a no-fallback run with the plain versions made to raise;
+     K1 (L1 argmin), K2 (composite), K3 (shortlist rescore) and K4
+     (segment top-cap) at test and main-path shapes, K3 and K4 also past
+     4 GiB; the tint over all 256 alphas x 65536 pairs, the card's LUT
+     against the CPU's, and a no-fallback run with the plain versions
+     made to raise;
   D  the repeat main path at the BASELINE size through `render_nto1`,
      from in-memory arrays: 100k synthetic tiles, mode 1 on a 4096^2
      source (LUT), then mode 4 on a 2048^2 source (K1) streamed with a
      0.3 tint into a PNG;
   N  the no-repeat main path at the flagship size through
      `render_nto1_no_repeat`: 32767 clustered synthetic tiles, mode 32 on
-     a 4096^2 source (the adaptive scorer, K3; the native greedy engine
-     with device refills; K2), its candidate lists against the two-level
-     scorer's, the worst case (uniform data) through `l1_topk`, and a
-     full-library-consumption assignment with device refills against
-     host scans;
+     a 4096^2 source (the adaptive scorer: K4 in its coarse pass, K3 in
+     its rescore; the native greedy engine with device refills; K2), its
+     candidate lists against the two-level scorer's, the worst case
+     (uniform data) through `l1_topk`, and a full-library-consumption
+     assignment with device refills against host scans;
+  L  the lab probes: `probes/seg8.py` (K4 in the coarse pass at the TPU
+     tool's 200k shape, bit-equal to the plain selection, with times) and
+     `probes/flatdma.py` (peak device bytes of K3, the coarse pass, the
+     rescore and the whole scorer at a 2M-row library; fails on a
+     library-sized temporary);
+  H  this slice's paths at full width: `render_nto1` with `hybrid=True`
+     and with `metric="l2"` at phase D's mode-4 shape, the hybrid
+     no-repeat scorer at phase N's flagship shape (K3), and random mode
+     into an 8192^2 output, in memory and through the streamed composite
+     (K2);
   E  the CLI, `python -m emosaic_tpu_torch.cli ... --device cuda`, on a
      generated 4000x3000 photo and 4096 tile files (needs Pillow): modes
      1 and 4, then `--no-repeat`, `--no-repeat --greedy` and
-     `--randomize 10` at mode 16;
-  F  the launch counts of each main path's run (D: K1 and K2; N: K3 and
-     K2), which must be > 0.
+     `--randomize 10` at mode 16, `--matcher hybrid` and `--metric l2` at
+     mode 4, and `-m random` on a 256x192 photo;
+  F  the launch counts of each main path's run (D: K1 and K2; N: K3, K4
+     and K2; H: K3 and K2), which must be > 0.
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed. The last lines are one JSON object listing every kernel (with
@@ -40,8 +52,9 @@ and `{"ok": true, "device": {...}}`.
 Bounds (`bound_ms`): the larger of the bytes the function must move (each
 input read once, each output written once; for gathers, the rows this
 run's indices reach) over 3.35 TB/s, and its integer operations (an
-absolute difference and an add per byte pair) over 1979 TOP/s, the
-H100 SXM's published HBM rate and int8 peak at its 700 W limit.
+absolute difference and an add per byte pair; none counted for K4's
+selection) over 1979 TOP/s, the H100 SXM's published HBM rate and int8
+peak at its 700 W limit.
 """
 
 from __future__ import annotations
@@ -345,6 +358,74 @@ def phase_c_k3(torch, gen, dev, card) -> dict:
             "gathered_gb": gathered / 1e9}
 
 
+def phase_c_k4(torch, gen, dev, card, b=16384, nseg_big=512) -> dict:
+    from emosaic_tpu_torch.ops import distance
+
+    err = Err()
+
+    def stripe(r, nseg, hi):
+        """A segment-major stripe with a full-tie segment and values at
+        hi - 1, and the coarse pass's cols layout."""
+        lp = nseg * 128
+        dist = torch.randint(0, hi, (r, lp), dtype=torch.int32, device=dev, generator=gen)
+        dist[:, :128] = 5
+        dist[:, 64:128:3] = hi - 1
+        pos = torch.arange(lp, device=dev)
+        return dist, (pos % 128) * nseg + pos // 128
+
+    def one(dist, cols, cap, real_l, what):
+        got = distance.seg_topcap(dist, cols, cap, real_l)
+        err.add(torch, got, distance._seg_topcap_ref(dist, cols, cap, real_l), what)
+
+    nsegs = (1, 7, 512, 1563, 15625)
+    for nseg in nsegs:
+        r = max(2, min(96, (1 << 22) // (nseg * 128)))
+        for cap in (8, 16):
+            for hi in (40, 2**30):  # tie-heavy, and values up to 2^30 - 1
+                dist, cols = stripe(r, nseg, hi)
+                # the last 37 positions' rows are padding: _TL_BIG = 2^30
+                one(dist, cols, cap, nseg * 128 - 37, f"K4 r={r} nseg={nseg} cap={cap}")
+    log(f"K4 nseg {nsegs} x cap 8, 16 x values < 40 (ties) and < 2^30, full-tie "
+        "segments, _TL_BIG-masked columns: exact")
+    rng = np.random.default_rng(SEED)
+    seg = rng.integers(0, 50, size=(32, 130, 128)).astype(np.int32)
+    seg[0, 0, :] = 7
+    seg[1, 3, 10:] = distance._TL_BIG
+    for cap in (8, 16):
+        got = distance.seg_topk(torch.as_tensor(seg, device=dev), cap)
+        srt = torch.sort(torch.as_tensor(seg), dim=2, stable=True)  # the tool's contract
+        want = (srt.values[:, :, :cap], srt.indices[:, :, :cap].to(torch.int32))
+        for g_, w_ in zip(got, want):
+            err.add(torch, g_.cpu(), w_, f"seg_topk [32, 130, 128] cap {cap}")
+    log("K4 seg_topk [32, 130, 128] (the tool's case), cap 8 and 16: equal to a stable "
+        "per-segment sort")
+    # one call whose stripe passes 4 GiB; its first 16384 rows are the
+    # flagship coarse pass's whole stripe (B=16384, lp=65536, cap 16)
+    nseg, cap = nseg_big, 16
+    dist, cols = stripe(b + 16, nseg, 1 << 20)
+    real_l = nseg * 128 - 2
+    one(dist, cols, cap, real_l, "K4 past 4 GiB")
+    log(f"K4 stripe {dist.numel() * 4 / 2**30:.3f} GiB in one call: exact")
+    flag = dist[:b]
+    ms = cuda_ms(torch, lambda: distance.seg_topcap(flag, cols, cap, real_l))
+    plain_ms = cuda_ms(torch, lambda: distance._seg_topcap_ref(flag, cols, cap, real_l),
+                       reps=2)
+    keys = distance._keys(flag.masked_fill(cols >= real_l, distance._TL_BIG), cols)
+    lib_ms = cuda_ms(torch, lambda: torch.topk(keys.view(b, nseg, 128), cap, dim=2,
+                                               largest=False), reps=2)
+    # read the stripe and the cols once, write the keys once
+    nb = flag.numel() * 4 + cols.numel() * 8 + b * nseg * cap * 8
+    log(f"K4 B={b} lp={nseg * 128} cap={cap}: kernel {ms:.3f} ms "
+        f"({nb / ms / 1e9:.2f} TB/s), plain {plain_ms:.3f} ms, torch.topk on the packed "
+        f"keys {lib_ms:.3f} ms [{card}]")
+    del dist, cols, flag, keys
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err.max, "ms": ms, "plain_ms": plain_ms, **bound(nb, 0),
+            "library_ms": lib_ms,
+            "shape": f"B={b} lp={nseg * 128} nseg={nseg} cap={cap} (the flagship coarse "
+                     "pass's whole stripe)"}
+
+
 def phase_c_tint_lut(torch, gen, dev, card) -> None:
     from emosaic_tpu_torch.ops import composite, distance, lut
 
@@ -383,18 +464,18 @@ def _no_fallback():
     @contextlib.contextmanager
     def ctx():
         saved = (distance.l1_argmin_ref, composite.compose_rows_ref,
-                 distance._l1_rows_ref)
+                 distance._l1_rows_ref, distance._seg_topcap_ref)
 
         def refuse(*a, **k):
             raise AssertionError("a CUDA tensor reached a plain version")
 
         distance.l1_argmin_ref = composite.compose_rows_ref = refuse
-        distance._l1_rows_ref = refuse
+        distance._l1_rows_ref = distance._seg_topcap_ref = refuse
         try:
             yield
         finally:
             (distance.l1_argmin_ref, composite.compose_rows_ref,
-             distance._l1_rows_ref) = saved
+             distance._l1_rows_ref, distance._seg_topcap_ref) = saved
 
     return ctx()
 
@@ -449,7 +530,7 @@ def phase_c_no_fallback(torch, gen, dev) -> None:
     check(res.info["scoring"]["route"] == "adaptive", f"route {res.info['scoring']}")
     check(np.array_equal(res.image, cpu.image), "no-repeat no-fallback run != CPU run")
     log("no fallback: render_nto1 (mode 4, composite), the dedup route and the "
-        "adaptive no-repeat render (K3) ran with every plain version raising; "
+        "adaptive no-repeat render (K4, K3) ran with every plain version raising; "
         "equal to the CPU runs")
 
 
@@ -673,27 +754,40 @@ def profile_render(torch, run, card) -> None:
         f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%; top: {top} [{card}]")
 
 
+#: the reference Makefile's default class: mode 32, --no-repeat, a 4096^2
+#: source, T = 32767 tiles (its cap) -> B = 16384, L = 65534, D = 3072
+FLAGSHIP_DIM = 32
+
+
+def flagship_scene(torch, gen, dev, t=32767, side=4096):
+    """(palettes [t, 1024, 3] on the card, the source [side, side, 3] host
+    u8, its TileSet, the stack [t, 32, 32, 3] on the card): block (by, bx)
+    of the source is a noisy copy of a random palette laid out as 32x32
+    pixels, and each tile image is its palette."""
+    from emosaic_tpu_torch.tiles.tileset import TileSet
+
+    dim = FLAGSHIP_DIM
+    g = side // dim
+    pal = clustered_palettes(torch, t, dim * dim, gen, dev)
+    blk = blocks_of(torch, pal, g * g, gen, dev)
+    src = blk.view(g, g, dim, dim, 3).permute(0, 2, 1, 3, 4).reshape(side, side, 3)
+    src = src.cpu().numpy()
+    ts = TileSet.from_arrays(pal.cpu().numpy(), [f"synthetic/{i:05d}.jpg" for i in range(t)])
+    torch.cuda.synchronize()
+    return pal, src, ts, pal.view(t, dim, dim, 3)
+
+
 def phase_n(torch, gen, dev, card, t=32767, side=4096, t2=16384) -> dict:
     from emosaic_tpu_torch import native
     from emosaic_tpu_torch.ops import distance
     from emosaic_tpu_torch.ops._kernels import KERNELS
     from emosaic_tpu_torch.ops.analysis import source_blocks
     from emosaic_tpu_torch.render.norepeat import render_nto1_no_repeat
-    from emosaic_tpu_torch.tiles.tileset import TileSet
 
-    # the reference Makefile's default class: mode 32, --no-repeat, a 4096^2
-    # source, T = 32767 tiles (its cap) -> B = 16384, L = 65534, D = 3072
-    dim, k = 32, 512
+    dim, k = FLAGSHIP_DIM, 512
     g = side // dim
     t0 = time.perf_counter()
-    pal = clustered_palettes(torch, t, dim * dim, gen, dev)
-    blk = blocks_of(torch, pal, g * g, gen, dev)
-    # block (by, bx) of the source is its palette laid out as 32x32 pixels
-    src = blk.view(g, g, dim, dim, 3).permute(0, 2, 1, 3, 4).reshape(side, side, 3)
-    src = src.cpu().numpy()
-    ts = TileSet.from_arrays(pal.cpu().numpy(), [f"synthetic/{i:05d}.jpg" for i in range(t)])
-    stack = pal.view(t, dim, dim, 3)  # the palettes as the 32x32 tile images
-    torch.cuda.synchronize()
+    pal, src, ts, stack = flagship_scene(torch, gen, dev, t, side)
     log(f"N set-up: {t} clustered tiles and a {side}^2 source in "
         f"{time.perf_counter() - t0:.3f} s")
 
@@ -802,6 +896,157 @@ def phase_n(torch, gen, dev, card, t=32767, side=4096, t2=16384) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# L, H
+# ---------------------------------------------------------------------------
+
+
+def phase_l(torch, dev, card) -> dict:
+    """The lab probes: K4 in the coarse pass at the 200k shape, and the
+    device-memory accounting of the scorer at a 2M-row library."""
+    from emosaic_tpu_torch.probes import flatdma, seg8
+
+    seg = seg8.probe(dev, card)
+    torch.cuda.empty_cache()
+    mem = flatdma.probe(dev, card)
+    torch.cuda.empty_cache()
+    return {"seg8": seg, "flatdma": mem}
+
+
+def phase_h(torch, gen, dev, card, t_tiles=100000, side4=2048, t=32767, side_n=4096,
+            side=256) -> dict:
+    """This slice's paths at full width: the hybrid and the L2 matcher at
+    phase D's mode-4 shape, the hybrid no-repeat scorer at the flagship
+    shape, and random mode into an 8192^2 output, in memory and streamed."""
+    from emosaic_tpu_torch.ops import composite, distance
+    from emosaic_tpu_torch.ops._kernels import KERNELS
+    from emosaic_tpu_torch.ops.analysis import analyse_batch, source_blocks
+    from emosaic_tpu_torch.render.matched import render_nto1
+    from emosaic_tpu_torch.render.norepeat import render_nto1_no_repeat
+    from emosaic_tpu_torch.render.random_mode import random_items, render_random
+    from emosaic_tpu_torch.tiles.tileset import TileSet
+
+    t0 = time.perf_counter()
+    stack16 = synthetic_tiles(torch, t_tiles, 16, gen, dev)
+    pal4 = analyse_batch(stack16, 4, device=dev).cpu().numpy()
+    ts4 = TileSet.from_arrays(pal4, [f"synthetic/{i:06d}.jpg" for i in range(t_tiles)])
+    src4 = synthetic_photo(torch, side4, side4, gen, dev)
+    pal, src, ts, stack = flagship_scene(torch, gen, dev, t, side_n)
+    t_rand, ts_rand = 1000, 32
+    stack_r = _u8(torch, gen, (t_rand, ts_rand, ts_rand, 3), dev)
+    ts_r = TileSet(palettes=None, paths=[f"r/{i}.jpg" for i in range(t_rand)])
+    src_r = np.zeros((side, side, 3), np.uint8)  # random mode reads only its shape
+    torch.cuda.synchronize()
+    log(f"H set-up: {t_tiles} tiles at ts 16, a {side4}^2 photo, the flagship scene, {t_rand} "
+        f"random-mode tiles in {time.perf_counter() - t0:.3f} s")
+
+    times, out = {}, {}
+    for kern in KERNELS:
+        kern.launches = 0
+    with _no_fallback():
+        for name, kw in (("hybrid", {"hybrid": True}), ("l2", {"metric": "l2"})):
+            t0 = time.perf_counter()
+            out[name] = render_nto1(src4, ts4, 16, device=dev, compose=False, **kw)
+            times[f"mode 4 {side4}^2 render_nto1 {kw} ({(side4 // 4) ** 2} blocks x "
+                  f"{2 * t_tiles} rows)"] = (
+                time.perf_counter() - t0)
+        lines = []
+        t0 = time.perf_counter()
+        out["nr"] = render_nto1_no_repeat(src, ts, FLAGSHIP_DIM, device=dev, stack=stack,
+                                          scorer="hybrid", log=lines.append)
+        torch.cuda.synchronize()
+        times["flagship render_nto1_no_repeat(scorer='hybrid')"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["random"] = render_random(src_r, ts_r, ts_rand, device=dev, seed=SEED,
+                                      stack=stack_r)
+        times[f"render_random {side * ts_rand}^2"] = time.perf_counter() - t0
+        items_r = random_items(src_r.shape[:2], t_rand, SEED)
+        t0 = time.perf_counter()
+        bands = list(composite.stream_tinted_bands(items_r, ts_r, stack_r, ts_rand,
+                                                   device=dev))
+        times[f"random mode {side * ts_rand}^2 streamed composite"] = (
+            time.perf_counter() - t0)
+    launches = {k.name: k.launches for k in KERNELS}
+    for name, secs in times.items():
+        log(f"H {name}: {secs:.3f} s [{card}]")
+    for ln in lines:
+        log(f"H {ln.strip()}")
+    log(f"H launches in this slice's paths: {launches}")
+
+    # mode 4 hybrid: exact L1 distances for its rows, and how often its row
+    # is the exact argmin's (the candidate set is L2-preselected)
+    blocks4 = source_blocks(src4, 4, device=dev)
+    lib4 = distance.build_library(torch.as_tensor(pal4, device=dev))
+    sample = torch.arange(0, blocks4.shape[0], blocks4.shape[0] // 4096, device=dev)
+    xs = blocks4[sample]
+    idx = sample.cpu().numpy()
+    res = out["hybrid"]
+    rows = distance.items_to_rows(torch.as_tensor(res.items.reshape(-1)[idx]), t_tiles)
+    hd = res.stats._get_arrays()[3][idx]
+    exact_h = (xs.int() - lib4[rows.to(dev).long()].int()).abs().sum(1).cpu().numpy()
+    check(np.array_equal(hd, exact_h), "hybrid distances are not the exact L1 of its rows")
+    wd, wr = distance.l1_argmin(xs, lib4)
+    agree = float((hd == wd.cpu().numpy()).mean())
+    check(agree > 0.9, f"hybrid top-1 agrees with the exact argmin on {agree:.3f}")
+    # mode 4 L2: the winner's squared distance is the least, from an f64 product
+    res = out["l2"]
+    rows = distance.items_to_rows(torch.as_tensor(res.items.reshape(-1)[idx]), t_tiles)
+    ld = res.stats._get_arrays()[3][idx][::4]
+    x64, t64 = xs[::4].double(), lib4.double()
+    full = (x64 * x64).sum(1)[:, None] + (t64 * t64).sum(1)[None, :] - 2 * x64 @ t64.T
+    got = full.gather(1, rows[::4].to(dev).long()[:, None])[:, 0]
+    check(np.array_equal(ld, got.cpu().numpy().astype(np.int64)), "L2 distance of the row")
+    check(bool((got == full.min(1).values).all()), "L2 row is not a least squared distance")
+    log(f"H mode 4 hybrid: distances exact L1 of its rows on {idx.size} blocks, top-1 = "
+        f"the exact argmin's distance on {100 * agree:.2f}% of them; L2: the least squared "
+        f"distance on {ld.size} sampled blocks (an f64 product)")
+    del blocks4, lib4, xs, x64, t64, full, stack16
+
+    # flagship hybrid no-repeat: the assignment, the image, and the recall of
+    # its candidate lists against the exact lists
+    nr = out["nr"]
+    check(nr.info["scorer"] == "hybrid", f"no-repeat scorer {nr.info['scorer']}")
+    items = nr.items.reshape(-1)
+    check(bool((items != 0).all()), "a block was left unassigned")
+    check(np.unique(np.abs(items)).size == items.size, "a tile was used twice")
+    stack_h = stack.cpu().numpy()
+    for y in (0, 31, side_n // 2, side_n - 1):
+        check(np.array_equal(nr.image[y].reshape(-1),
+                             expected_row(nr.items, stack_h, y, FLAGSHIP_DIM)),
+              f"H no-repeat image row {y}")
+    blocks = source_blocks(src, FLAGSHIP_DIM, device=dev)
+    lib = distance.build_library(pal)
+    k = min(512, lib.shape[0])
+    hd, hr = distance.l1_topk_hybrid(blocks, lib, k, k_pre=min(2 * k, lib.shape[0]))
+    ed, er = distance.l1_topk_adaptive(blocks, lib, k)
+    s = slice(0, None, 64)
+    exact_h = (blocks[::64, None, :].int() - lib[torch.as_tensor(hr[s], device=dev).long()]
+               .int()).abs().sum(-1).cpu().numpy()
+    check(np.array_equal(hd[s], exact_h), "flagship hybrid list distances are not exact")
+    recall = float(np.mean([np.isin(er[i], hr[i]).mean() for i in range(0, len(er), 16)]))
+    top1 = float((hd[:, 0] == ed[:, 0]).mean())
+    log(f"H flagship hybrid no-repeat: {items.size} blocks, every |item| distinct, image "
+        f"rows equal the host composite; its [{len(hd)}, {k}] lists: exact distances, "
+        f"recall {100 * recall:.2f}% of the exact lists, top-1 distance exact on "
+        f"{100 * top1:.2f}% [{card}]")
+    del blocks, lib, pal, stack
+
+    # random mode: the seeded items, in memory and streamed, equal
+    img = out["random"]
+    check(img.shape == (side * ts_rand, side * ts_rand, 3), f"random image {img.shape}")
+    stack_rh = stack_r.cpu().numpy()
+    for y in (0, 31, side * ts_rand // 2, side * ts_rand - 1):
+        check(np.array_equal(img[y].reshape(-1), expected_row(items_r, stack_rh, y, ts_rand)),
+              f"random image row {y}")
+    check(np.array_equal(np.concatenate(bands), img), "streamed random bands != in memory")
+    log(f"H random mode: {side * ts_rand}^2 image rows equal the host composite of the "
+        f"seeded items; the {len(bands)} streamed bands equal it")
+    del stack_r, bands, img
+    torch.cuda.empty_cache()
+    return {"launches": launches, "times": times, "hybrid_top1": agree,
+            "nr_recall": recall, "nr_top1": top1}
+
+
+# ---------------------------------------------------------------------------
 # E
 # ---------------------------------------------------------------------------
 
@@ -836,7 +1081,9 @@ def phase_e(card) -> None:
     runs = [(1, 16, 4, [], 0.9), (4, 32, 2, [], 0.9),
             (16, 32, 4, ["--no-repeat"], 0.8),
             (16, 32, 4, ["--no-repeat", "--greedy"], 0.8),
-            (16, 32, 4, ["--randomize", "10"], 0.9)]
+            (16, 32, 4, ["--randomize", "10"], 0.9),
+            (4, 32, 4, ["--matcher", "hybrid"], 0.9),
+            (4, 32, 4, ["--metric", "l2"], 0.9)]
     for mode, size, down, extra, corr_min in runs:
         out = WORK / f"m{mode}.png"
         cmd = [sys.executable, "-m", "emosaic_tpu_torch.cli", "-s", str(size),
@@ -865,6 +1112,44 @@ def phase_e(card) -> None:
             f"{a.shape[1]}x{a.shape[0]}, block-mean corr {corr:.4f}; "
             f"{'; '.join(timings)} [{card}]")
         out.unlink()
+    phase_e_random(card, env)
+
+
+def phase_e_random(card, env) -> None:
+    """`-m random` on a 256x192 photo (one tile per pixel, -s 16): the
+    output's blocks are the prepared tiles the seeded item grid names."""
+    from PIL import Image
+
+    from emosaic_tpu_torch.io.discovery import find_images
+    from emosaic_tpu_torch.io.prep import prepare_tile
+    from emosaic_tpu_torch.render.random_mode import random_items
+
+    with Image.open(WORK / "photo.jpg") as im:
+        im.resize((256, 192)).save(WORK / "small.png")
+    out, tiles = WORK / "random.png", WORK / "tiles"
+    cmd = [sys.executable, "-m", "emosaic_tpu_torch.cli", "-s", "16", "-o", str(out),
+           str(WORK / "small.png"), "mosaic", str(tiles), "-m", "random", "--seed", "7",
+           "--device", "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=WORK, env=env)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"CLI -m random exited {proc.returncode}")
+    with Image.open(out) as im:
+        a = np.asarray(im.convert("RGB"))
+    check(a.shape == (192 * 16, 256 * 16, 3), f"random output {a.shape}")
+    paths = find_images(tiles, {"jpg", "jpeg"})
+    items = random_items((192, 256), len(paths), 7)
+    rng = np.random.default_rng(SEED)
+    for y, x in zip(rng.integers(0, 192, 24), rng.integers(0, 256, 24)):
+        want = prepare_tile(paths[items[y, x] - 1], 16, crop=True)
+        check(np.array_equal(a[y * 16 : y * 16 + 16, x * 16 : x * 16 + 16], want),
+              f"random block ({y}, {x})")
+    check(not out.with_suffix(".stats.png").exists(), "random mode wrote stats")
+    log(f"E CLI -m random -s 16 on a 256x192 photo: {secs:.1f} s, {a.shape[1]}x{a.shape[0]}, "
+        f"24 sampled blocks equal the prepared tiles of the seeded items [{card}]")
+    out.unlink()
 
 
 # ---------------------------------------------------------------------------
@@ -893,6 +1178,7 @@ def main() -> int:
         k1 = phase_c_k1(torch, gen, dev, card)
         k2 = phase_c_k2(torch, gen, dev, card)
         k3 = phase_c_k3(torch, gen, dev, card)
+        k4 = phase_c_k4(torch, gen, dev, card)
         phase_c_tint_lut(torch, gen, dev, card)
         phase_c_no_fallback(torch, gen, dev)
         log("== D. main path at the BASELINE size")
@@ -901,11 +1187,17 @@ def main() -> int:
         log("== N. the no-repeat main path at the flagship size")
         n = phase_n(torch, gen, dev, card)
         launches_n = n["launches"]
+        log("== L. the lab probes")
+        lab = phase_l(torch, dev, card)
+        log("== H. the hybrid, L2 and random paths at full width")
+        h = phase_h(torch, gen, dev, card)
+        launches_h = h["launches"]
         log("== E. the CLI")
         phase_e(card)
         log("== F. counters")
         for path, counts, names in [("D", launches_d, ("l1_argmin", "compose")),
-                                    ("N", launches_n, ("l1_rows", "compose"))]:
+                                    ("N", launches_n, ("l1_rows", "seg_topcap", "compose")),
+                                    ("H", launches_h, ("l1_rows", "compose"))]:
             for name in names:
                 log(f"{name}: {counts[name]} launches in {path}")
                 check(counts[name] > 0, f"{name} was not launched by the {path} path")
@@ -917,6 +1209,7 @@ def main() -> int:
         (KERNELS[0], k1, "emosaic_tpu/ops/distance.py:190", launches_d),
         (KERNELS[1], k2, "emosaic_tpu/ops/composite.py:119", launches_d),
         (KERNELS[2], k3, "emosaic_tpu/ops/distance.py:1535", launches_n),
+        (KERNELS[3], k4, "tools/tpu_r14_seg8.py:62", launches_n),
     ]:
         rows.append({
             "name": k.name, "route": "cuda",
@@ -924,6 +1217,15 @@ def main() -> int:
             "launches": launches[k.name], **res,
         })
     rows[1]["also_replaces"] = "emosaic_tpu/ops/composite.py:82"
+    rows[2]["also_replaces"] = "tools/tpu_r19_flatdma.py:48"
+    rows[2]["launches_h"] = launches_h["l1_rows"]
+    rows[2]["flatdma_steps"] = lab["flatdma"]["steps"]
+    seg = lab["seg8"]
+    rows[3].update(ms_200k_chunk=seg["k4_ms"], plain_ms_200k_chunk=seg["plain_ms"],
+                   library_ms_200k_chunk=seg["library_ms"],
+                   shape_200k_chunk=f"[{seg['rows']}, {seg['lp']}] cap {seg['cap']}",
+                   coarse_k4_s_200k=seg["coarse_k4_s"],
+                   coarse_plain_s_200k=seg["coarse_plain_s"])
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

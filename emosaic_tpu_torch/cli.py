@@ -5,10 +5,12 @@
         [-m MODE] [-f] [-t TINT] [--downsample N] [--device {cuda,cpu}] ...
 
 The parser is the JAX package's, flag for flag, plus `--device`. The
-matched route (with `--randomize` and `--no-repeat --greedy`), the global
-no-repeat route (`--no-repeat`), the tint route, the banded PNG route and
-the stats PNG run here; the flags of routes not ported yet raise
-NotImplementedError naming their ROADMAP item. Parity quirks kept: the output is always PNG-encoded
+matched route (with `--randomize`, `--no-repeat --greedy`, `--matcher
+{auto,lut,pallas,xla,hybrid}` and `--metric {l1,l2}`), the global
+no-repeat route (`--no-repeat`, also with `--matcher hybrid`), `-m
+random`, the tint route, the banded PNG route and the stats PNG run here;
+the flags of routes not ported yet raise NotImplementedError naming their
+ROADMAP item. Parity quirks kept: the output is always PNG-encoded
 (main.rs:482-483) and the tint path returns before the stats
 (main.rs:477).
 """
@@ -23,6 +25,8 @@ from pathlib import Path
 
 import numpy as np
 
+from emosaic_tpu_torch.errors import ImageError
+from emosaic_tpu_torch.io.discovery import find_images
 from emosaic_tpu_torch.io.prep import cache_dir, prepare_tile
 from emosaic_tpu_torch.modes import Mode
 from emosaic_tpu_torch.monitor import (
@@ -378,10 +382,6 @@ def _refuse_unported(args) -> None:
     ]
     if args.subcmd == "mosaic":
         checks += [
-            (args.mode == Mode.RANDOM.value, "-m random", "render/random_mode.py"),
-            (args.matcher in ("xla", "hybrid"), f"--matcher {args.matcher}",
-             "hybrid and L2 matchers"),
-            (args.metric == "l2", "--metric l2", "hybrid and L2 matchers"),
             (args.mesh.strip().lower() != "off", f"--mesh {args.mesh}",
              "parallel/ -> torch.distributed"),
             (args.html or args.web, "--html/--web", "web/"),
@@ -458,22 +458,11 @@ def run_prepare(args) -> None:
     Image.fromarray(tile).save(args.output_path)
 
 
-def run_mosaic(args, timer=None) -> None:
-    from PIL import Image
-
-    from emosaic_tpu_torch.ops.composite import stream_tinted_bands, tint_blend
+def run_matched(args, original, mode, device, timer):
+    """The matched and no-repeat routes. Returns (output, items, stats,
+    tile_set, stack, streaming, config)."""
     from emosaic_tpu_torch.render.matched import render_nto1
     from emosaic_tpu_torch.render.norepeat import render_nto1_no_repeat
-
-    timer = timer or PhaseTimer(log)
-    device = resolve_device(args.device)
-    validate_tiles_directory(args.tiles_dir)
-    mode = Mode(args.mode)
-    log(f"Opening source image: {args.img}")
-    try:
-        original = Image.open(args.img)
-    except Exception as e:  # corrupt/garbage bytes behind a valid extension
-        raise SystemExit(f"❌ Failed to open source image {args.img}: {e}")
 
     dim = mode.dim
     src = preprocess_source(original, args.downsample, dim)
@@ -503,8 +492,16 @@ def run_mosaic(args, timer=None) -> None:
             tile_set, args.tiles_dir, args.tile_size,
             max_bytes=args.max_stack_bytes,
         )
-    # 'pallas' names the argmin kernel (K1 here), as in emosaic_tpu.cli
-    use_lut = {"auto": "auto", "lut": "always", "pallas": "never"}[args.matcher]
+    # 'pallas' and 'xla' name the JAX package's two exact argmins; both
+    # are K1 here, as both are the non-LUT exact argmin there
+    use_lut = {
+        "auto": "auto",
+        "lut": "always",
+        "pallas": "never",
+        "xla": "never",
+        "hybrid": "auto",
+    }[args.matcher]
+    hybrid = args.matcher == "hybrid"
     # gigapixel outputs are composed in bands and PNG-encoded
     # incrementally; stack=None (too big for memory) always streams
     out_h = (src.shape[0] // dim) * args.tile_size
@@ -533,6 +530,7 @@ def run_mosaic(args, timer=None) -> None:
             result = render_nto1_no_repeat(
                 src, tile_set, args.tile_size, device=device, stack=stack,
                 compose=not streaming,
+                scorer="hybrid" if hybrid else "exact",
             )
         else:
             result = render_nto1(
@@ -544,6 +542,8 @@ def run_mosaic(args, timer=None) -> None:
                 seed=args.seed,
                 device=device,
                 use_lut=use_lut,
+                metric=args.metric,
+                hybrid=hybrid,
                 stack=stack,
                 compose=not streaming,
             )
@@ -564,6 +564,69 @@ def run_mosaic(args, timer=None) -> None:
         tiles_dir=str(args.tiles_dir),
         title=args.title,
     )
+    return output, items, stats, tile_set_out, stack, streaming, config
+
+
+def run_random(args, original, device):
+    """`-m random` (main.rs:415-435): every discovered tile, prepared
+    square-cropped; one random tile per source pixel at full resolution.
+    Returns (output or None, items or None, tile_set, stack, streaming)."""
+    from emosaic_tpu_torch.render.random_mode import random_items, render_random
+
+    images = find_images(args.tiles_dir, set(args.extensions))
+    # the reference pushes every path unchecked and panics at render time
+    # on an unreadable or undersized file (rendering.rs:430-433); here
+    # those tiles are skipped with a warning, as in the JAX package
+    keep_stack = len(images) * args.tile_size**2 * 3 <= args.max_stack_bytes
+    good, prepared = [], []
+    for p in images:
+        try:
+            img = prepare_tile(p, args.tile_size, crop=True)
+            if keep_stack:
+                prepared.append(img)
+            good.append(p)
+        except ImageError as e:
+            log(f"- skipping {e}")
+    if not good:
+        raise SystemExit("❌ No usable tiles found")
+    tile_set = TileSet(palettes=None, paths=good)
+    log(f"Tile set with {len(tile_set)} tiles")
+    src = np.asarray(original.convert("RGB"), dtype=np.uint8)
+    stack = np.stack(prepared) if keep_stack else None
+    out_h = src.shape[0] * args.tile_size
+    out_w = src.shape[1] * args.tile_size
+    streaming = out_h * out_w * 3 > args.stream_threshold or stack is None
+    if streaming:
+        items = random_items(src.shape[:2], len(tile_set), args.seed)
+        return None, items, tile_set, stack, streaming
+    output = render_random(
+        src, tile_set, args.tile_size, seed=args.seed, stack=stack, device=device
+    )
+    return output, None, tile_set, stack, streaming
+
+
+def run_mosaic(args, timer=None) -> None:
+    from PIL import Image
+
+    from emosaic_tpu_torch.ops.composite import stream_tinted_bands, tint_blend
+
+    timer = timer or PhaseTimer(log)
+    device = resolve_device(args.device)
+    validate_tiles_directory(args.tiles_dir)
+    mode = Mode(args.mode)
+    log(f"Opening source image: {args.img}")
+    try:
+        original = Image.open(args.img)
+    except Exception as e:  # corrupt/garbage bytes behind a valid extension
+        raise SystemExit(f"❌ Failed to open source image {args.img}: {e}")
+
+    if mode is Mode.RANDOM:
+        output, items, tile_set_out, stack, streaming = run_random(args, original, device)
+        stats = config = None
+    else:
+        output, items, stats, tile_set_out, stack, streaming, config = run_matched(
+            args, original, mode, device, timer
+        )
 
     out_path = args.output_path
     original_rgb = None
@@ -610,7 +673,9 @@ def run_mosaic(args, timer=None) -> None:
         log(f"📝 Writing output file to {out_path}")
         Image.fromarray(output).save(out_path, format="PNG")
 
-    if stats.tile_count():
+    if stats is None:
+        pass  # random mode records no stats
+    elif stats.tile_count():
         stats_path = out_path.with_suffix(".stats.png")
         log(f"📊 Writing statistics visualization to {stats_path}")
         try:

@@ -125,7 +125,13 @@ L1_ROWS = CudaKernel(
     "emosaic_l1_rows",
     [_I, _P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_longlong, _I, _I, _P],
 )
-KERNELS = (L1_ARGMIN, COMPOSE, L1_ROWS)
+#: csrc/seg_topcap.cu (see ops/distance.py `seg_topcap`)
+SEG_TOPCAP = CudaKernel(
+    "seg_topcap",
+    "emosaic_seg_topcap",
+    [_I, _P, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_longlong, _I, _I, _P],
+)
+KERNELS = (L1_ARGMIN, COMPOSE, L1_ROWS, SEG_TOPCAP)
 
 
 def build_all(kernels=KERNELS, force: bool = False) -> dict:

@@ -14,7 +14,12 @@ The torch counterpart of `emosaic_tpu/ops/distance.py`.
   no-repeat candidate lists (rendering.rs:307-321). The dense distance
   stripes come from `l1_block`; the adaptive scorer's shortlist rescore is
   the hand-written kernel K3 `csrc/l1_rows.cu` (`l1_rows`), with
-  `_l1_rows_ref` its plain version for CPU tensors.
+  `_l1_rows_ref` its plain version for CPU tensors; its coarse pass keeps
+  each segment's least keys through the kernel K4 `csrc/seg_topcap.cu`
+  (`seg_topcap`), with `_seg_topcap_ref` its plain version.
+- `l1_topk_hybrid`, `l1_argmin_hybrid` (`--matcher hybrid`) and
+  `l2_argmin` (`--metric l2`): the approximate squared-L2 prefilter with
+  an exact-L1 rescore on K3, and the squared-L2 argmin.
 - `DeviceRefiller`: the batched masked top-k refill of the no-repeat
   assignment engine.
 
@@ -38,11 +43,14 @@ TPU-only devices of the JAX package that this port drops, one line each:
 - the f32-vs-i32 stripe choice (`_stripe_f32_ok`): a v5e lane-rate fact.
 - the fixed padded shapes of `_refill_topk_jit`: XLA compile caching;
   torch runs each event at its own shape.
+- `_rescore_use_dma`: the hybrid rescore's DMA eligibility (a TPU
+  addressing limit); K3 takes every library on the card.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
 import math
 import os
@@ -52,7 +60,7 @@ import time
 import numpy as np
 import torch
 
-from emosaic_tpu_torch.ops._kernels import L1_ARGMIN, L1_ROWS
+from emosaic_tpu_torch.ops._kernels import L1_ARGMIN, L1_ROWS, SEG_TOPCAP
 
 I32_MAX = 2**31 - 1
 _MASK32 = 0xFFFFFFFF
@@ -611,8 +619,9 @@ def _pad_lib(lib: torch.Tensor, lp: int, dev) -> torch.Tensor:
 def _ad_coarse_lib(lib_pad: torch.Tensor, d: int, g: int, chan: bool, real_l: int):
     """The projected library in segment-major order: position s*w + k holds
     row k*nseg + s (w = 128 columns per segment), so a coarse stripe comes
-    out segment by segment. Returns (proj [lp, dout] i32, cols [lp] i64,
-    the library row of each position, invalid [lp] bool)."""
+    out segment by segment. Returns (proj [lp, dout] i32, cols [lp] i32,
+    the library row of each position, real_l: positions whose row is at
+    least real_l are padding)."""
     lp = lib_pad.shape[0]
     nseg = lp // _TL_SEG
     w = lp // nseg
@@ -625,15 +634,119 @@ def _ad_coarse_lib(lib_pad: torch.Tensor, d: int, g: int, chan: bool, real_l: in
     )
     pos = torch.arange(lp, device=dev)
     cols = (pos % w) * nseg + pos // w
-    return proj[cols], cols, cols >= real_l
+    return proj[cols], cols.to(torch.int32), real_l
+
+
+# ---------------------------------------------------------------------------
+# Segment top-cap (K4)
+# ---------------------------------------------------------------------------
+
+#: the most survivors a segment can keep (K4 keeps a bit per position)
+_SEG_CAP_MAX = _TL_SEG
+#: K4 blocks per SM that fill the card (the warps stride over the segments)
+_SEG_BLOCKS_PER_SM = 8
+
+
+def _seg_topcap_ref(
+    dist: torch.Tensor, cols: torch.Tensor, cap: int, real_l: int
+) -> torch.Tensor:
+    """Plain torch version of K4: positions whose col is >= real_l count as
+    `_TL_BIG`; each 128-position segment keeps its `cap` least packed
+    (value, col) keys, ascending, by a torch.topk on the keys. Returns
+    int64 [r, nseg*cap]."""
+    nseg = dist.shape[1] // _TL_SEG
+    dist = dist.masked_fill(cols >= real_l, _TL_BIG)
+    return _least(_keys(dist, cols).view(-1, nseg, _TL_SEG), cap).flatten(1)
+
+
+def _seg_topcap_cuda(
+    dist: torch.Tensor, cols: torch.Tensor, cap: int, real_l: int
+) -> torch.Tensor:
+    r, lp = dist.shape
+    nseg = lp // _TL_SEG
+    # K4 reads whole 16-byte vectors; a fresh allocation is aligned
+    d, c = dist.contiguous(), cols.to(torch.int32).contiguous()
+    d = d.clone() if d.data_ptr() % 16 else d
+    c = c.clone() if c.data_ptr() % 16 else c
+    out = torch.empty((r, nseg * cap), dtype=torch.int64, device=dist.device)
+    if r == 0:
+        return out
+    stream = torch.cuda.current_stream(dist.device).cuda_stream
+    sms = torch.cuda.get_device_properties(dist.device).multi_processor_count
+    SEG_TOPCAP.launch(
+        dist.device.index,
+        ctypes.c_void_p(d.data_ptr()),
+        ctypes.c_void_p(c.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()),
+        r,
+        nseg,
+        cap,
+        real_l,
+        _TL_BIG,
+        sms * _SEG_BLOCKS_PER_SM,
+        ctypes.c_void_p(stream),
+    )
+    return out
+
+
+def seg_topcap(
+    dist: torch.Tensor, cols: torch.Tensor, cap: int, real_l: int
+) -> torch.Tensor:
+    """Per-segment ascending top-`cap` of a segment-major distance stripe.
+
+    dist [r, nseg*128] int32 (position s*128 + k in segment s), cols
+    [nseg*128] integer, the library row of each position, growing with k
+    within each segment; 1 <= cap <= 128. Positions with cols >= real_l
+    count as `_TL_BIG`. Returns int64 [r, nseg*cap]: per segment its `cap`
+    least keys (value << 32) | col, ascending, the lowest col first among
+    equal values. A CUDA tensor goes to K4 (`csrc/seg_topcap.cu`), a CPU
+    tensor to `_seg_topcap_ref`.
+    """
+    if dist.dtype != torch.int32 or dist.dim() != 2 or dist.shape[1] % _TL_SEG:
+        raise ValueError(
+            f"seg_topcap takes an int32 [r, nseg*{_TL_SEG}] stripe, got "
+            f"{dist.dtype} {tuple(dist.shape)}"
+        )
+    if cols.dim() != 1 or cols.shape[0] != dist.shape[1] or cols.is_floating_point():
+        raise ValueError(f"cols must be integer [{dist.shape[1]}], got {tuple(cols.shape)}")
+    if not 1 <= cap <= _SEG_CAP_MAX:
+        raise ValueError(f"cap must be in 1..{_SEG_CAP_MAX}, got {cap}")
+    if dist.device != cols.device:
+        raise ValueError(f"devices differ: {dist.device} / {cols.device}")
+    if dist.device.type == "cpu":
+        return _seg_topcap_ref(dist, cols, cap, real_l)
+    if dist.device.type != "cuda":
+        raise ValueError(f"unsupported device {dist.device}")
+    return _seg_topcap_cuda(dist, cols, cap, real_l)
+
+
+def seg_topk(seg: torch.Tensor, cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-segment ascending top-`cap` of seg [bc, nseg, 128] int32 ->
+    (vals [bc, nseg, cap] int32, idx [bc, nseg, cap] int32 lanes), the
+    lowest lane first among equal values: the contract of
+    `seg_topk_pallas` (tools/tpu_r14_seg8.py), bit-equal to
+    `-lax.top_k(-seg, cap)` and its indices. As there, nseg is padded with
+    `_TL_BIG` segments to a multiple of 128 and cut back. Runs `seg_topcap`
+    (K4 on a CUDA tensor)."""
+    bc, nseg, w = seg.shape
+    if w != _TL_SEG:
+        raise ValueError(f"segments must be {_TL_SEG} wide, got {w}")
+    nseg2 = -(-nseg // _TL_SEG) * _TL_SEG
+    if nseg2 != nseg:
+        seg = torch.nn.functional.pad(seg, (0, 0, 0, nseg2 - nseg), value=_TL_BIG)
+    lp = nseg2 * _TL_SEG
+    cols = torch.arange(lp, dtype=torch.int32, device=seg.device)  # s*128 + lane
+    keys = seg_topcap(seg.reshape(bc, lp), cols, cap, lp).view(bc, nseg2, cap)[:, :nseg]
+    return (keys >> 32).to(torch.int32), (keys & (_TL_SEG - 1)).to(torch.int32)
 
 
 def _ad_coarse(x, coarse_lib, d: int, g: int, chan: bool, cap: int):
     """Step 1 for the blocks x [r, d]: per segment, the `cap` least coarse
-    (bound, row) keys. Returns (keys [r, nseg*cap] i64, ascending within
-    each segment; s_min [r] i32, the least over segments of the worst
-    kept bound, part of the bound on every row not kept)."""
-    proj, cols, invalid = coarse_lib
+    (bound, row) keys, through `seg_topcap` (K4 on the card). Returns
+    (keys [r, nseg*cap] i64, ascending within each segment; s_min [r] i32,
+    the least over segments of the worst kept bound, part of the bound on
+    every row not kept)."""
+    proj, cols, real_l = coarse_lib
     lp = proj.shape[0]
     nseg = lp // _TL_SEG
     r = x.shape[0]
@@ -642,13 +755,11 @@ def _ad_coarse(x, coarse_lib, d: int, g: int, chan: bool, cap: int):
     bc = max(1, _AD_COARSE_KEY_BYTES // (8 * lp))
     for b0 in range(0, r, bc):
         dist = l1_block(_ad_project(x[b0 : b0 + bc], d, g, chan), proj)
-        dist.masked_fill_(invalid, _TL_BIG)
-        seg = _least(_keys(dist, cols).view(-1, nseg, _TL_SEG), cap)
+        seg = seg_topcap(dist, cols, cap, real_l)
         del dist
-        keys[b0 : b0 + bc] = seg.flatten(1)
-        s_min[b0 : b0 + bc] = (seg[:, :, cap - 1] >> 32).min(dim=1).values.to(
-            torch.int32
-        )
+        keys[b0 : b0 + bc] = seg
+        worst = seg.view(-1, nseg, cap)[:, :, cap - 1] >> 32
+        s_min[b0 : b0 + bc] = worst.min(dim=1).values.to(torch.int32)
     return keys, s_min
 
 
@@ -1071,6 +1182,172 @@ def l1_topk_streamed(blocks, lib, k: int, *, bank_rows: int | None = None,
         best_d, best_r = _fold_topk_host(best_d, best_r, dd, rr, kk, l)
     best_r = np.where(best_d == I32_MAX, 0, best_r)
     return _pad_topk(best_d, best_r, b, k, kk)
+
+
+# ---------------------------------------------------------------------------
+# Hybrid: squared-L2 prefilter + exact-L1 rescore (K3), and the L2 argmin
+#
+# APPROXIMATE and opt-in (`--matcher hybrid`, `--metric l2`), as in the
+# JAX package: the hybrid's candidates are the k_pre rows of least
+# squared-L2 score, re-ranked and distanced in exact int32 L1, and the
+# candidate set is not guaranteed to hold the L1 top k. The score is
+# |t|^2 - 2 x.t (|x|^2 is constant per query): a plain f32 matrix product
+# of the u8 values (exact in f32) with TF32 off (`_full_f32`). Every score
+# is an exact integer while 255^2 * D < 2^24 (D <= 258, modes <= 9);
+# above that the card's sum order may differ from the CPU's. The selection
+# is exact, lowest row first among equal scores (a packed key over an
+# order-preserving int32 image of the score). The JAX package's
+# approx_min_k returns the same set on the CPU but orders ties across its
+# cut otherwise, so the parity tests use data with no tie there.
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _full_f32():
+    """float32 matrix products in full float32 inside the block, whatever
+    the process-wide setting: TF32 keeps 10 mantissa bits and would round
+    the integer sums of the L2 scores."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def _f32_order(x: torch.Tensor) -> torch.Tensor:
+    """An int32 image of f32 values with their order (NaN aside): the bits,
+    with the magnitude bits of negative values flipped."""
+    bits = x.view(torch.int32)
+    return bits ^ ((bits >> 31) & I32_MAX)
+
+
+def _lib_f32_chunks(t: torch.Tensor):
+    """Yield (row0, t [rows, D] f32, |t|^2 [rows] f32) over library chunks
+    of at most `_BLOCK_F32_BYTES` of f32."""
+    ch = max(1, _BLOCK_F32_BYTES // (4 * max(t.shape[1], 1)))
+    for t0 in range(0, t.shape[0], ch):
+        tf = t[t0 : t0 + ch].float()
+        yield t0, tf, (tf * tf).sum(1)
+
+
+def _l2_prefilter(x: torch.Tensor, t: torch.Tensor, k_pre: int) -> torch.Tensor:
+    """The k_pre library rows of least squared-L2 score per block (the JAX
+    package's `_mxu_prefilter_jit`), selected exactly, over library chunks
+    folded on packed keys. Returns int32 rows [B, k_pre] on x's device."""
+    b = x.shape[0]
+    best = None
+    with _full_f32():
+        for t0, tf, norm in _lib_f32_chunks(t):
+            lc = tf.shape[0]
+            kc = min(k_pre, lc)
+            cols = torch.arange(t0, t0 + lc, device=x.device)
+            part = torch.empty((b, kc), dtype=torch.int64, device=x.device)
+            bc = max(1, _STRIPE_BYTES // (8 * lc))
+            for b0 in range(0, b, bc):
+                score = norm[None, :] - 2.0 * (x[b0 : b0 + bc].float() @ tf.T)
+                part[b0 : b0 + bc] = _least(_keys(_f32_order(score), cols), kc)
+                del score
+            best = part if best is None else _least(torch.cat([best, part], 1), k_pre)
+    return (best & _MASK32).to(torch.int32)
+
+
+def _l1_rescore(x: torch.Tensor, cand: torch.Tensor, lib: torch.Tensor, k: int):
+    """Exact L1 of each block's candidates through `l1_rows` (K3 on the
+    card) and their k least by (distance, row): the JAX package's
+    `_l1_rescore_jit`. Its `_rescore_use_dma` test is dropped: K3 takes
+    every library. Returns (dists [B, k] i32, rows [B, k] i32)."""
+    cand = torch.sort(cand, dim=1).values  # ascending rows: neighbours gather together
+    return _topk_rows(l1_rows(x, cand, lib), k, cand)
+
+
+def l1_topk_hybrid(blocks, lib, k: int, *, k_pre: int | None = None, device=None):
+    """Approximate k nearest rows: the squared-L2 prefilter, then an exact
+    L1 rescore on K3 (section comment above).
+
+    Returned distances are exact int32 L1 for the returned rows, ascending
+    by (distance, row); the candidate set is L2-preselected. k_pre defaults
+    to max(2k, 64) capped at the library size. A small library (L <=
+    max(2k, 256)) takes the exact stripes, and one over the device budget
+    the exact streamed scorer. Returns host numpy int32 arrays, I32_MAX
+    padded when k > L.
+    """
+    blocks, lib = _as_u8(blocks), _as_u8(lib)
+    dev = _device_of(blocks, device)
+    b = blocks.shape[0]
+    l = lib.shape[0]
+    if lib.numel() > DEVICE_LIB_BYTES_MAX and l > _TL_SEG:
+        # the prefilter needs the whole library on the device; past the
+        # budget the streamed banks give an exact candidate set instead
+        return l1_topk_streamed(blocks, lib, k, device=dev)
+    if l <= max(k * 2, 256):
+        return l1_topk_stripes(blocks, lib, k, device=dev)
+    kp = min(k_pre or max(2 * k, 64), l)
+    kk = min(k, kp)
+    x, t = blocks.to(dev), lib.to(dev)
+    dd, rr = _l1_rescore(x, _l2_prefilter(x, t, kp), t, kk)
+    return _pad_topk(_host(dd), _host(rr), b, k, kk)
+
+
+def l1_argmin_hybrid(blocks, lib, *, k_pre: int = 64, device=None):
+    """Approximate nearest row (the exact L1 distance of the winner) through
+    `l1_topk_hybrid`. Returns host numpy (dist [B] int32, row [B] int32)."""
+    d, r = l1_topk_hybrid(blocks, lib, 1, k_pre=k_pre, device=device)
+    return d[:, 0], r[:, 0]
+
+
+def _l2_argmin(x: torch.Tensor, t: torch.Tensor):
+    """The first least score per block, over library chunks folded
+    strictly-less in ascending order, and the winner's exact int32 squared
+    distance (wrapping past D = 33025, as the JAX package's int32 does)."""
+    b = x.shape[0]
+    best_s = torch.full((b,), float("inf"), device=x.device)
+    best_r = torch.zeros((b,), dtype=torch.int64, device=x.device)
+    with _full_f32():
+        for t0, tf, norm in _lib_f32_chunks(t):
+            bc = max(1, _STRIPE_BYTES // (4 * tf.shape[0]))
+            for b0 in range(0, b, bc):
+                score = norm[None, :] - 2.0 * (x[b0 : b0 + bc].float() @ tf.T)
+                r = score.argmin(dim=1)  # the first minimum
+                s = score.gather(1, r[:, None])[:, 0]
+                take = s < best_s[b0 : b0 + bc]
+                best_s[b0 : b0 + bc] = torch.where(take, s, best_s[b0 : b0 + bc])
+                best_r[b0 : b0 + bc] = torch.where(take, r + t0, best_r[b0 : b0 + bc])
+                del score
+    dist = torch.empty((b,), dtype=torch.int32, device=x.device)
+    rows = max(1, _RESCORE_I32_BYTES // (4 * max(x.shape[1], 1)))
+    for b0 in range(0, b, rows):
+        diff = x[b0 : b0 + rows].to(torch.int32) - t[best_r[b0 : b0 + rows]].to(torch.int32)
+        dist[b0 : b0 + rows] = (diff * diff).sum(1, dtype=torch.int32)
+    return _host(dist), _host(best_r.to(torch.int32))
+
+
+def l2_argmin(blocks, lib, *, device=None):
+    """Nearest library row under squared L2 (`--metric l2`): a performance
+    mode beyond the reference, which matches in L1 only.
+
+    Returns host numpy (dist_sq [B] int32, row [B] int32); the row is the
+    first least f32 score, so ties may resolve differently from the L1
+    kernels. A library whose 3x (the JAX package's u8 + bf16 working set)
+    exceeds the device budget streams in banks of a third of it through
+    this same function, folded on (distance, lowest row).
+    """
+    blocks, lib = _as_u8(blocks), _as_u8(lib)
+    dev = _device_of(blocks, device)
+    d = blocks.shape[1]
+    l = lib.shape[0]
+    if 3 * lib.numel() > DEVICE_LIB_BYTES_MAX and l > _TL_SEG:
+        rb = max(_TL_SEG, DEVICE_LIB_BYTES_MAX // 3 // d // _TL_SEG * _TL_SEG)
+
+        def bank_scorer(bb, ll, kx, prepared=None):
+            dd_, rr_ = l2_argmin(bb, ll, device=dev)
+            return dd_[:, None], rr_[:, None]
+
+        da, ra = l1_topk_streamed(
+            blocks, lib, 1, bank_rows=rb, scorer=bank_scorer, device=dev
+        )
+        return da[:, 0], ra[:, 0]
+    return _l2_argmin(blocks.to(dev), lib.to(dev))
 
 
 # ---------------------------------------------------------------------------

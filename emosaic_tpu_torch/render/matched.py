@@ -4,7 +4,9 @@ The torch counterpart of `emosaic_tpu/render/matched.py`: source -> block
 vectors (device) -> exact L1 match (the mode-1 LUT, or the argmin kernel
 after an optional dedup of repeated blocks), or exact top-k candidates
 and a randomized or in-render no-repeat choice -> signed item grid ->
-device composite.
+device composite. The opt-in fast modes beside the exact match: the
+hybrid (an L2 prefilter and an exact-L1 rescore) and the squared-L2
+argmin, both approximate.
 
 Parity notes (as in the JAX package):
 - stats record *source-pixel* coordinates (rendering.rs:211-214), a quirk
@@ -36,7 +38,9 @@ from emosaic_tpu_torch.ops.composite import compose_mosaic
 from emosaic_tpu_torch.ops.distance import (
     build_library,
     l1_argmin,
+    l1_argmin_hybrid,
     l1_topk,
+    l2_argmin,
     rows_to_items,
 )
 from emosaic_tpu_torch.ops.lut import MAX_ROWS, build_l1_lut, lut_match
@@ -128,12 +132,23 @@ def finish_render(
 
 
 def match_blocks(
-    blocks: torch.Tensor, lib: torch.Tensor, *, use_lut: str = "auto"
+    blocks: torch.Tensor,
+    lib: torch.Tensor,
+    *,
+    use_lut: str = "auto",
+    metric: str = "l1",
+    hybrid: bool = False,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Exact L1 match on the blocks' device: the LUT (mode 1, >= 4096
-    blocks, or `use_lut="always"`), else the argmin kernel, with repeated
-    blocks deduplicated first when a sample says fewer than half are
-    unique. Returns host (dist [B] int32, row [B] int32)."""
+    """Match on the blocks' device: the squared-L2 argmin (`metric="l2"`),
+    the hybrid (`hybrid=True`, modes above 1), or the exact L1 match: the
+    LUT (mode 1, >= 4096 blocks, or `use_lut="always"`), else the argmin
+    kernel, with repeated blocks deduplicated first when a sample says
+    fewer than half are unique. Returns host (dist [B] int32, row [B]
+    int32)."""
+    if metric == "l2":
+        return l2_argmin(blocks, lib)
+    if hybrid and blocks.shape[1] > 3:
+        return l1_argmin_hybrid(blocks, lib)
     b, d = blocks.shape
     lut_ok = d == 3 and lib.shape[0] <= MAX_ROWS
     lut_auto = use_lut == "auto" and lut_ok and b >= _LUT_MIN_BLOCKS
@@ -166,13 +181,15 @@ def render_nto1(
     device,
     seed: int = 0,
     use_lut: str = "auto",
+    metric: str = "l1",
+    hybrid: bool = False,
     stack: np.ndarray | None = None,
     compose: bool = True,
     log=lambda *a: print(*a, file=sys.stderr),
 ) -> RenderOutcome:
-    """Render the matched mosaic of `source_img` on `device`: the exact
-    match, or with `randomize` a seeded choice among the near-best, or with
-    `no_repeat` the in-render no-repeat choice."""
+    """Render the matched mosaic of `source_img` on `device`: the match of
+    `match_blocks`, or with `randomize` a seeded choice among the
+    near-best, or with `no_repeat` the in-render no-repeat choice."""
     if no_repeat and randomize is not None:
         raise ValueError(
             "no_repeat + randomize is unsupported (the reference deadlocks "
@@ -184,14 +201,24 @@ def render_nto1(
     dim, htiles, vtiles, blocks, lib = start_render(
         source_img, tile_set, tile_size, log, device=device, check_tiles=no_repeat
     )
-    if (no_repeat or randomize is not None) and use_lut != "auto":
-        # these branches always score with the exact L1 top-k: the match
-        # path's knob would otherwise be dropped silently
-        log(
-            f"⚠️  --matcher {use_lut} ignored: "
-            f"{'randomize' if randomize is not None else 'greedy no-repeat'} "
-            "always scores with the exact L1 top-k"
-        )
+    if no_repeat or randomize is not None:
+        # these branches always score with the exact L1 top-k: the
+        # match-path-only knobs would otherwise be dropped silently
+        ignored = [
+            name
+            for name, off in (
+                (f"--matcher {use_lut}", use_lut == "auto"),
+                (f"--metric {metric}", metric == "l1"),
+                ("--matcher hybrid", not hybrid),
+            )
+            if not off
+        ]
+        if ignored:
+            log(
+                f"⚠️  {', '.join(ignored)} ignored: "
+                f"{'randomize' if randomize is not None else 'greedy no-repeat'} "
+                "always scores with the exact L1 top-k"
+            )
     rng = np.random.default_rng(seed)
     if randomize is not None:
         k = min(_DEFAULT_RANDOM_NEIGHBORS, lib.shape[0])
@@ -223,7 +250,9 @@ def render_nto1(
                 order, cd, cr, lib.shape[0], refill
             )
     else:
-        dists, rows = match_blocks(blocks, lib, use_lut=use_lut)
+        dists, rows = match_blocks(
+            blocks, lib, use_lut=use_lut, metric=metric, hybrid=hybrid
+        )
     # stats_step=dim: source-pixel coords (rendering.rs:211-214)
     return finish_render(
         rows, dists, vtiles, htiles, tile_set, dim, tile_size,

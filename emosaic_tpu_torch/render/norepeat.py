@@ -7,6 +7,8 @@ The torch counterpart of `emosaic_tpu/render/norepeat.py`. Two phases:
    while B * L is affordable (`exact-full`), else an exact 512-entry prefix
    from the adaptive certified scorer (`adaptive-exact`, whose shortlist
    rescore is kernel K3) with exact masked refills during assignment.
+   `scorer="hybrid"` takes the approximate L2-prefilter lists (`hybrid`,
+   exact L1 distances rescored on K3) past the full-list budget.
 2. Assignment: best-match-first priority queue with mirror-pair exclusion
    (render/greedy.py, or the native engine), exactly the worklist
    semantics of rendering.rs:323-392.
@@ -29,6 +31,7 @@ from emosaic_tpu_torch.ops.distance import (
     DeviceRefiller,
     l1_dist_matrix,
     l1_topk_adaptive,
+    l1_topk_hybrid,
 )
 from emosaic_tpu_torch.render.greedy import greedy_global_assign, make_numpy_refill
 from emosaic_tpu_torch.render.matched import (
@@ -73,8 +76,6 @@ def render_nto1_no_repeat(
     if scorer not in ("exact", "hybrid"):
         # fail loud: a typo would otherwise silently run the exact path
         raise ValueError(f"scorer must be 'exact' or 'hybrid', got {scorer!r}")
-    if scorer == "hybrid":
-        raise _not_ported("--no-repeat --matcher hybrid", "5. hybrid and L2 matchers")
     if mesh is not None:
         raise _not_ported("--no-repeat --mesh", "6. parallel/ -> torch.distributed")
     dim, htiles, vtiles, blocks, lib = start_render(
@@ -85,7 +86,14 @@ def render_nto1_no_repeat(
     info = {}
 
     t0 = time.perf_counter()
-    if b * l <= _EXACT_BUDGET and lib.numel() <= _distance.DEVICE_LIB_BYTES_MAX:
+    if scorer == "hybrid" and b * l > _EXACT_BUDGET:
+        # the L2 prefilter + exact-L1 rescore: an approximate candidate
+        # set with exact distances; assignment still refills exactly, so
+        # only the set's membership is approximate
+        scorer_used = "hybrid"
+        k = min(_TRUNCATED_K, l)
+        cd, cr = l1_topk_hybrid(blocks, lib, k, k_pre=min(2 * k, l))
+    elif b * l <= _EXACT_BUDGET and lib.numel() <= _distance.DEVICE_LIB_BYTES_MAX:
         # the full sorted candidate list per block: the dense matrix on the
         # device, a stable argsort on the host (a device top-k at k = L is
         # far slower)

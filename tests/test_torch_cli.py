@@ -6,8 +6,11 @@ directory with its own prepared-tile cache. Output pixels, the stats PNG
 and the analysis cache must be equal. Also: the port reads the JAX
 package's analysis cache, imports neither jax nor emosaic_tpu, refuses
 `--device cuda` without a GPU, and refuses every flag it does not port.
-The no-repeat routes (`--no-repeat`, with and without `--greedy`) and
-`--randomize` are among the compared cases.
+The no-repeat routes (`--no-repeat`, with and without `--greedy`),
+`--randomize`, `-m random` (in memory and streamed), `--matcher xla`,
+`--metric l2`, and `--matcher hybrid` with and without `--no-repeat` are
+among the compared cases (random mode writes no stats and no analysis
+cache).
 """
 
 import io
@@ -84,6 +87,14 @@ CASES = {
     "no-repeat": ["-m", "2", "--downsample", "3", "--no-repeat"],
     "no-repeat-greedy": ["-m", "2", "--downsample", "3", "--no-repeat", "--greedy"],
     "randomize": ["-m", "2", "--randomize", "10", "--seed", "3"],
+    # one tile per source pixel: 97x64 tiles of 16x16
+    "random": ["-m", "random", "--seed", "5"],
+    "random-streamed": ["-m", "random", "--seed", "5", "--stream-threshold", "0"],
+    "matcher-xla": ["-m", "2", "--matcher", "xla"],
+    "metric-l2": ["-m", "2", "--metric", "l2"],
+    # 240 library rows: the hybrid routes to the exact stripes (D = 12)
+    "matcher-hybrid": ["-m", "2", "--matcher", "hybrid"],
+    "no-repeat-hybrid": ["-m", "2", "--downsample", "3", "--no-repeat", "--matcher", "hybrid"],
 }
 
 
@@ -94,14 +105,18 @@ def test_cli_matches_jax(scene, tmp_path, monkeypatch, case):
     _run(cli.main, scene, tmp_path / "port", [*args, "--device", "cpu"], monkeypatch)
     j, p = tmp_path / "jax", tmp_path / "port"
     np.testing.assert_array_equal(_pixels(p / "out.png"), _pixels(j / "out.png"))
-    tinted = "-t" in args
-    for d in (j, p):  # the tint route returns before the stats
-        assert (d / "out.stats.png").exists() != tinted
-    if not tinted:
+    random = "random" in args
+    # the tint route returns before the stats; random mode keeps none
+    has_stats = "-t" not in args and not random
+    for d in (j, p):
+        assert (d / "out.stats.png").exists() == has_stats
+    if has_stats:
         assert (p / "out.stats.png").read_bytes() == (j / "out.stats.png").read_bytes()
-    (jc,) = (j / "tiles").glob(".emosaic_*to1")
-    pc = p / "tiles" / jc.name
-    assert _npz_members(pc) == _npz_members(jc)
+    caches = [sorted((d / "tiles").glob(".emosaic_*to1")) for d in (j, p)]
+    assert [c.name for c in caches[1]] == [c.name for c in caches[0]]
+    assert len(caches[0]) == (0 if random else 1)
+    for jc, pc in zip(*caches):
+        assert _npz_members(pc) == _npz_members(jc)
 
 
 def test_port_reads_the_jax_analysis_cache(scene, tmp_path, monkeypatch):
@@ -154,6 +169,12 @@ def test_port_no_repeat_cli_imports_neither_jax_nor_emosaic_tpu(scene, tmp_path)
     _hygiene_run(scene, tmp_path / "hygiene", ["-m", "2", "--downsample", "3", "--no-repeat"])
 
 
+@pytest.mark.parametrize("args", [["-m", "random"], ["-m", "2", "--matcher", "hybrid"],
+                                  ["-m", "2", "--metric", "l2"]])
+def test_port_fast_mode_clis_import_neither_jax_nor_emosaic_tpu(scene, tmp_path, args):
+    _hygiene_run(scene, tmp_path / "hygiene", args)
+
+
 def test_device_cuda_without_gpu_raises(scene, tmp_path, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a GPU is visible: --device cuda runs instead of raising")
@@ -171,10 +192,6 @@ def test_device_defaults_to_cuda():
 @pytest.mark.parametrize(
     "pre,post",
     [
-        ([], ["-m", "random"]),
-        ([], ["--matcher", "xla"]),
-        ([], ["--matcher", "hybrid"]),
-        ([], ["--metric", "l2"]),
         ([], ["--mesh", "auto"]),
         ([], ["--html"]),
         ([], ["--web"]),

@@ -1,4 +1,4 @@
-"""K1, K2 and K3 against their plain torch versions on an NVIDIA GPU.
+"""K1, K2, K3 and K4 against their plain torch versions on an NVIDIA GPU.
 
 A CUDA kernel has no CPU mode, so these tests are marked `cuda` and skip
 on a host without a GPU. This file imports neither jax nor the JAX
@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from emosaic_tpu_torch.ops import composite, distance
-from emosaic_tpu_torch.ops._kernels import COMPOSE, L1_ARGMIN, L1_ROWS
+from emosaic_tpu_torch.ops._kernels import COMPOSE, L1_ARGMIN, L1_ROWS, SEG_TOPCAP
 
 pytestmark = pytest.mark.cuda
 
@@ -105,3 +105,56 @@ def test_k3_repeated_candidates_and_adaptive_scorer(cuda):
     t = _u8(rng, (10, 48), cuda)
     q = _u8(rng, (4, 48), cuda)
     assert torch.equal(distance.l1_rows(q, c, t), distance._l1_rows_ref(q, c, t))
+
+
+def _stripe(rng, r, nseg, dev, hi=2**30):
+    """A segment-major stripe with full-tie segments, values near 2^30, and
+    the coarse pass's cols layout."""
+    lp = nseg * 128
+    dist = rng.integers(0, hi, size=(r, lp)).astype(np.int32)
+    dist[:, :128] = 5  # a full-tie segment
+    dist[:, 128 : 128 + 64 : 2] = hi - 1
+    pos = np.arange(lp)
+    cols = (pos % 128) * nseg + pos // 128
+    return torch.from_numpy(dist).to(dev), torch.from_numpy(cols).to(dev)
+
+
+@pytest.mark.parametrize(
+    "r,nseg,cap,hi", [(3, 1, 8, 50), (5, 7, 16, 2**30), (17, 512, 16, 2**24), (4, 1563, 8, 30),
+                      (2, 15625, 8, 2**20), (9, 3, 128, 7)]
+)
+def test_k4_matches_plain(cuda, r, nseg, cap, hi):
+    rng = np.random.default_rng(r * 31 + nseg)
+    dist, cols = _stripe(rng, r, nseg, cuda, hi)
+    real_l = nseg * 128 - 40  # masked padding columns
+    before = SEG_TOPCAP.launches
+    got = distance.seg_topcap(dist, cols, cap, real_l)
+    torch.cuda.synchronize()
+    assert SEG_TOPCAP.launches == before + 1
+    assert torch.equal(got, distance._seg_topcap_ref(dist, cols, cap, real_l))
+
+
+def test_k4_tool_contract_and_the_coarse_pass(cuda):
+    """`seg_topk` at the tool's [32, 130, 128] case, and the adaptive
+    coarse pass on the card (K4 in it) equal to the same pass on the CPU."""
+    rng = np.random.default_rng(130)
+    seg = rng.integers(0, 50, size=(32, 130, 128)).astype(np.int32)
+    seg[0, 0, :] = 7
+    seg[1, 3, 10:] = distance._TL_BIG
+    for cap in (8, 16):
+        got = distance.seg_topk(torch.from_numpy(seg).to(cuda), cap)
+        want = distance.seg_topk(torch.from_numpy(seg), cap)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    d, g, l = 96, 8, 3000
+    lib = rng.integers(0, 256, size=(l, d), dtype=np.uint8)
+    lib_pad = np.zeros((-(-l // 128) * 128, d), np.uint8)
+    lib_pad[:l] = lib
+    blocks = lib[rng.integers(0, l, size=40)]
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        cl = distance._ad_coarse_lib(torch.from_numpy(lib_pad).to(dev), d, g, True, l)
+        before = SEG_TOPCAP.launches
+        keys, s_min = distance._ad_coarse(torch.from_numpy(blocks).to(dev), cl, d, g, True, 16)
+        assert SEG_TOPCAP.launches == before + (dev.type == "cuda")
+        outs.append((keys.cpu(), s_min.cpu()))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])

@@ -157,7 +157,7 @@ def test_no_repeat_refusals(rng):
         matched.render_nto1(src, ts, 4, no_repeat=True, randomize=5.0, device="cpu")
     with pytest.raises(ValueError, match="scorer"):
         norepeat.render_nto1_no_repeat(src, ts, 4, device="cpu", scorer="fastest")
-    with pytest.raises(NotImplementedError, match="ROADMAP: 5"):
+    with pytest.raises(ValueError, match="Insufficient tiles"):
         norepeat.render_nto1_no_repeat(src, ts, 4, device="cpu", scorer="hybrid")
     with pytest.raises(NotImplementedError, match="ROADMAP: 6"):
         norepeat.render_nto1_no_repeat(src, ts, 4, device="cpu", mesh=object())
