@@ -7,13 +7,18 @@ Run from the root of a checkout. Phases, each printing its own lines:
 
   A  environment: torch/CUDA versions, the card's name and power limit,
      nvcc, and a GPU, or it stops;
-  B  build: the four CUDA kernels from `emosaic_tpu_torch/csrc/` (one
-     nvcc each, started together) and the native C++ greedy engine;
+  B  build: the eight CUDA kernels from the seven sources of
+     `emosaic_tpu_torch/csrc/` (one nvcc per source, started together) and
+     the native C++ greedy engine;
   C  each kernel against its plain torch version on the card, exactly:
      K1 (L1 argmin), K2 (composite), K3 (shortlist rescore) and K4
      (segment top-cap) at test and main-path shapes, K3 and K4 also past
-     4 GiB; the tint over all 256 alphas x 65536 pairs, the card's LUT
-     against the CPU's, and a no-fallback run with the plain versions
+     4 GiB; the composite lab kernels K5 (write floor), K6 and K7 (the
+     band through bulk copies, one stage and a two-stage ring) and K8
+     (relayout of gathered tiles) at ts 8..64 and nbx 77..4096 with edge
+     items, at the BASELINE band and past 4 GiB (K5's band; K6 and K7 on a
+     9.8 GB stack); the tint over all 256 alphas x 65536 pairs, the card's
+     LUT against the CPU's, and a no-fallback run with the plain versions
      made to raise;
   D  the repeat main path at the BASELINE size through `render_nto1`,
      from in-memory arrays: 100k synthetic tiles, mode 1 on a 4096^2
@@ -26,11 +31,15 @@ Run from the root of a checkout. Phases, each printing its own lines:
      candidate lists against the two-level scorer's, the worst case
      (uniform data) through `l1_topk`, and a full-library-consumption
      assignment with device refills against host scans;
-  L  the lab probes: `probes/seg8.py` (K4 in the coarse pass at the TPU
-     tool's 200k shape, bit-equal to the plain selection, with times) and
+  L  the lab probes, with the composite lab kernels' plain versions made
+     to raise: `probes/seg8.py` (K4 in the coarse pass at the TPU tool's
+     200k shape, bit-equal to the plain selection, with times),
      `probes/flatdma.py` (peak device bytes of K3, the coarse pass, the
      rescore and the whole scorer at a 2M-row library; fails on a
-     library-sized temporary);
+     library-sized temporary), `probes/r3_composite.py` (C0..C10: K2, K5,
+     K6 and K7 at the r3 tools' band, each bit-equal to K2) and
+     `probes/composite_variants.py` (v1, v4, v3d = K8, K2 at a 1.61 GB
+     band, each equal to v1, and the match-phase breakdown);
   H  this slice's paths at full width: `render_nto1` with `hybrid=True`
      and with `metric="l2"` at phase D's mode-4 shape, the hybrid
      no-repeat scorer at phase N's flagship shape (K3), and random mode
@@ -42,7 +51,7 @@ Run from the root of a checkout. Phases, each printing its own lines:
      `--randomize 10` at mode 16, `--matcher hybrid` and `--metric l2` at
      mode 4, and `-m random` on a 256x192 photo;
   F  the launch counts of each main path's run (D: K1 and K2; N: K3, K4
-     and K2; H: K3 and K2), which must be > 0.
+     and K2; H: K3 and K2; L: K5, K6, K7 and K8), which must be > 0.
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed. The last lines are one JSON object listing every kernel (with
@@ -127,8 +136,13 @@ class Err:
 
     def add(self, torch, got, want, what: str) -> None:
         torch.cuda.synchronize()
-        diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
-        err = int(diff.max()) if diff.numel() else 0
+        check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} != "
+              f"{tuple(want.shape)}")
+        g, w = got.reshape(-1), want.reshape(-1)
+        err, step = 0, 1 << 28  # int64 chunks: a band past 4 GiB fits
+        for i in range(0, g.numel(), step):
+            diff = (g[i : i + step].to(torch.int64) - w[i : i + step].to(torch.int64)).abs()
+            err = max(err, int(diff.max()))
         self.max = max(self.max, err)
         check(err == 0, f"{what}: kernel differs from plain, max |err| = {err}")
 
@@ -161,10 +175,11 @@ def phase_b() -> None:
     log("== B. build")
     t0 = time.perf_counter()
     secs = build_all(KERNELS, force=True)
-    for k in KERNELS:
+    for k in {k.source_name: k for k in KERNELS}.values():
+        names = [j.name for j in KERNELS if j.source_name == k.source_name]
         log(f"built {k.source.relative_to(ROOT)} -> {k.library.relative_to(ROOT)} "
-            f"in {secs[k.name]:.2f} s")
-    log(f"all kernels in {time.perf_counter() - t0:.2f} s (one nvcc each, together)")
+            f"({', '.join(names)}) in {secs[k.source_name]:.2f} s")
+    log(f"all kernels in {time.perf_counter() - t0:.2f} s (one nvcc per source, together)")
     secs = native.build(force=True)
     check(native.available(), "the native greedy engine did not load")
     log(f"built {native.SOURCE.relative_to(ROOT)} -> "
@@ -236,18 +251,35 @@ def phase_c_k1(torch, gen, dev, card) -> dict:
             "main_path_shape": f"B={b} L={l} D={d}"}
 
 
+def edge_items(torch, gen, dev, t, nby, nbx):
+    """Items [nby, nbx] uniform in [-t, t], the first eight 0, +-t, out of
+    range and +-(2^31 - 1 or 2^31)."""
+    it = torch.randint(-t, t + 1, (nby, nbx), dtype=torch.int32, device=dev,
+                       generator=gen)
+    edges = [0, t, -t, t + 7, -(t + 7), 1, 2**31 - 1, -(2**31)]
+    it.view(-1)[: min(8, it.numel())] = torch.tensor(edges[: it.numel()],
+                                                       dtype=torch.int32, device=dev)
+    return it
+
+
+def k2_bound(torch, items, aug) -> dict:
+    """K2's bound, also K6's and K7's: the tiles the items reach, the items,
+    and the band written."""
+    from emosaic_tpu_torch.ops import composite
+
+    ts = aug.shape[1]
+    reached = int(torch.unique(composite.rows_of(items, aug.shape[0] // 2)).numel())
+    tile_bytes = ts * ts * 3
+    return bound(reached * tile_bytes + items.numel() * 4 + items.numel() * tile_bytes, 0)
+
+
 def phase_c_k2(torch, gen, dev, card) -> dict:
     from emosaic_tpu_torch.ops import composite
 
     err = Err()
 
     def items_for(t, nby, nbx):
-        it = torch.randint(-t, t + 1, (nby, nbx), dtype=torch.int32, device=dev,
-                           generator=gen)
-        it.view(-1)[:8] = torch.tensor(
-            [0, t, -t, t + 7, -(t + 7), 1, 2**31 - 1, -(2**31)],
-            dtype=torch.int32, device=dev)
-        return it
+        return edge_items(torch, gen, dev, t, nby, nbx)
 
     for t, ts, nby, nbx in [(5, 8, 3, 128), (1000, 12, 5, 300), (1000, 20, 5, 300),
                             (1000, 16, 4, 1000), (37, 32, 3, 77)]:
@@ -264,11 +296,7 @@ def phase_c_k2(torch, gen, dev, card) -> dict:
             composite.compose_rows_ref(items, aug), "K2 BASELINE band")
     ms = cuda_ms(torch, lambda: composite.compose_rows(items, aug))
     plain_ms = cuda_ms(torch, lambda: composite.compose_rows_ref(items, aug))
-    tile_bytes = ts * ts * 3
-    reached = int(torch.unique(composite.rows_of(items, t)).numel())
-    # the tiles the items reach, the items, and the band written
-    k2_bound = bound(reached * tile_bytes + items.numel() * 4
-                     + items.numel() * tile_bytes, 0)
+    bound_k2 = k2_bound(torch, items, aug)
     # past the TPU path's 131072 tiles per call, in one call
     many = items_for(t, 40, 4096)
     err.add(torch, composite.compose_rows(many, aug),
@@ -295,7 +323,7 @@ def phase_c_k2(torch, gen, dev, card) -> dict:
     torch.cuda.empty_cache()
     # no single torch call gathers and lays out a band (index_select gives
     # [tiles, ts, ts*3]; the band order needs a second, permuting copy)
-    return {"max_abs_err": err.max, "ms": ms, "plain_ms": plain_ms, **k2_bound,
+    return {"max_abs_err": err.max, "ms": ms, "plain_ms": plain_ms, **bound_k2,
             "library_ms": None, "shape": "items [32, 4096], T=100000, ts=32"}
 
 
@@ -426,6 +454,132 @@ def phase_c_k4(torch, gen, dev, card, b=16384, nseg_big=512) -> dict:
                      "pass's whole stripe)"}
 
 
+def phase_c_k5(torch, gen, dev, card) -> dict:
+    from emosaic_tpu_torch.ops import composite_lab as lab
+
+    err = Err()
+    seed = _u8(torch, gen, (8, 128), dev)
+    shapes = [(1, 16), (7, 13), (24, 6144), (1024, 393216)]
+    for h, w in shapes:
+        err.add(torch, lab.floor_write(seed, h, w), lab.floor_write_ref(seed, h, w),
+                f"K5 {h}x{w}")
+    h, w = 1100, 4_000_000  # 4.4 GB, one call
+    got = lab.floor_write(seed, h, w)
+    err.add(torch, got, lab.floor_write_ref(seed, h, w), "K5 past 4 GiB")
+    log(f"K5 bands {shapes} and {h}x{w} ({h * w / 2**30:.2f} GiB, one call): exact")
+    del got
+    torch.cuda.empty_cache()
+    # the BASELINE band, the TPU tool's shape
+    h, w = 1024, 393216
+    ms = cuda_ms(torch, lambda: lab.floor_write(seed, h, w))
+    plain_ms = cuda_ms(torch, lambda: lab.floor_write_ref(seed, h, w))
+    filled = torch.empty((h, w), dtype=torch.uint8, device=dev)
+    lib_ms = cuda_ms(torch, lambda: filled.fill_(seed[0, 0]))
+    log(f"K5 {h}x{w} ({h * w / 1e6:.2f} MB): kernel {ms:.4f} ms ({h * w / ms / 1e6:.0f} "
+        f"GB/s), plain {plain_ms:.4f} ms, fill_ {lib_ms:.4f} ms [{card}]")
+    del filled
+    return {"max_abs_err": err.max, "ms": ms, "plain_ms": plain_ms, **bound(h * w + 1, 0),
+            "library_ms": lib_ms, "shape": f"[{h}, {w}] u8 band (the BASELINE band)"}
+
+
+def phase_c_k6_k7(torch, gen, dev, card) -> tuple[dict, dict]:
+    """K6 and K7 against their plain version (K2's), at ts 8..64 and nbx
+    77..4096 with edge items, at the BASELINE band, and past 4 GiB."""
+    from emosaic_tpu_torch.ops import composite
+    from emosaic_tpu_torch.ops import composite_lab as lab
+
+    errs = {1: Err(), 2: Err()}
+
+    def both(items, aug, what, **kw):
+        want = lab.compose_rows_bulk_ref(items, aug)
+        for stages, err in errs.items():
+            got = lab.compose_rows_bulk(items, aug, stages=stages, **kw)
+            err.add(torch, got, want, f"{what} stages={stages}")
+
+    tss, nbxs = (8, 16, 32, 64), (77, 128, 300, 4096)
+    for ts in tss:
+        t = 300
+        aug, _ = composite.augment_stack2d(_u8(torch, gen, (t, ts, ts, 3), dev), device=dev)
+        for nbx in nbxs:
+            both(edge_items(torch, gen, dev, t, 2, nbx), aug, f"K6/K7 ts={ts} nbx={nbx}")
+        both(edge_items(torch, gen, dev, t, 3, 77), aug, f"K6/K7 ts={ts} run=1", run=1)
+    log(f"K6, K7 ts {tss} x nbx {nbxs} (and run 1), items 0, +-T, out of range, "
+        "+-(2^31 - 1 or 2^31): exact")
+    # the BASELINE band: 32 block-rows x 4096 tiles, ts = 32, T = 100k
+    t, ts = 100000, 32
+    aug, _ = composite.augment_stack2d(_u8(torch, gen, (t, ts, ts, 3), dev), device=dev)
+    items = edge_items(torch, gen, dev, t, 32, 4096)
+    both(items, aug, "K6/K7 BASELINE band")
+    ms = {s: cuda_ms(torch, lambda: lab.compose_rows_bulk(items, aug, stages=s))
+          for s in (1, 2)}
+    plain_ms = cuda_ms(torch, lambda: lab.compose_rows_bulk_ref(items, aug))
+    bound_band = k2_bound(torch, items, aug)
+    band = items.numel() * ts * ts * 3
+    log(f"K6 / K7 BASELINE band {band / 1e6:.1f} MB at run {lab.RUN}: {ms[1]:.3f} / "
+        f"{ms[2]:.3f} ms ({2 * band / ms[1] / 1e6:.0f} / {2 * band / ms[2] / 1e6:.0f} GB/s "
+        f"moved), plain {plain_ms:.3f} ms [{card}]")
+    del aug
+    torch.cuda.empty_cache()
+    # a 9.8 GB stack (T = 100k, ts = 128), items aimed past 4 GiB
+    t, ts = 100000, 128
+    aug, _ = composite.augment_stack2d(_u8(torch, gen, (t, ts, ts, 3), dev), device=dev)
+    first_far = (1 << 32) // (ts * ts * 3) + 1
+    far = torch.randint(first_far + 1, t + 1, (2, 512), dtype=torch.int32, device=dev,
+                        generator=gen)
+    far[1] = -far[1]
+    both(far, aug, "K6/K7 9.8 GB stack")
+    log(f"K6, K7 stack {aug.numel() / 1e9:.2f} GB, items at rows >= {first_far} (byte "
+        f"offset > 4 GiB), runs of {min(lab.RUN, lab.run_fit(ts, 1))} and "
+        f"{min(lab.RUN, lab.run_fit(ts, 2))} tiles: exact")
+    del aug
+    torch.cuda.empty_cache()
+    rows = []
+    for stages in (1, 2):
+        rows.append({"max_abs_err": errs[stages].max, "ms": ms[stages],
+                     "plain_ms": plain_ms, **bound_band, "library_ms": None,
+                     "shape": f"items [32, 4096], T=100000, ts=32, stages={stages}, "
+                              f"run={lab.RUN}"})
+    return rows[0], rows[1]
+
+
+def phase_c_k8(torch, gen, dev, card) -> dict:
+    from emosaic_tpu_torch.ops import composite
+    from emosaic_tpu_torch.ops import composite_lab as lab
+    from emosaic_tpu_torch.probes import composite_variants as cv
+
+    err = Err()
+    tss, nbxs = (8, 16, 32, 64), (77, 128, 300, 4096)
+    for ts in tss:
+        for nbx in nbxs:
+            sel = _u8(torch, gen, (2 * nbx, ts, ts * 3), dev)
+            err.add(torch, lab.band_transpose(sel, 2, nbx), lab.band_transpose_ref(sel, 2, nbx),
+                    f"K8 ts={ts} nbx={nbx}")
+    log(f"K8 ts {tss} x nbx {nbxs}: exact")
+    # the TPU tool's shape: 128 x 4096 tiles of ts = 32 gathered from 100k
+    t, ts, nby, nbx = 100000, 32, 128, 4096
+    aug, _ = composite.augment_stack2d(_u8(torch, gen, (t, ts, ts, 3), dev), device=dev)
+    items = torch.randint(1, t + 1, (nby, nbx), dtype=torch.int32, device=dev, generator=gen)
+    sel = cv.gather(items, aug)
+    del aug
+    got = lab.band_transpose(sel, nby, nbx)
+    err.add(torch, got, lab.band_transpose_ref(sel, nby, nbx), "K8 at the tool's shape")
+    del got
+    ms = cuda_ms(torch, lambda: lab.band_transpose(sel, nby, nbx))
+    plain_ms = cuda_ms(torch, lambda: lab.band_transpose_ref(sel, nby, nbx))
+    lib_ms = cuda_ms(torch, lambda: cv.relayout_copy(sel, nby, nbx))
+    i32_ms = cuda_ms(torch, lambda: cv.relayout_copy_i32(sel, nby, nbx))
+    nb = 2 * sel.numel()
+    log(f"K8 [{nby * nbx}, {ts}, {ts * 3}] -> [{nby * ts}, {nbx * ts * 3}] "
+        f"({sel.numel() / 1e9:.2f} GB): kernel {ms:.3f} ms ({nb / ms / 1e6:.0f} GB/s moved), "
+        f"plain {plain_ms:.3f} ms, copy_ {lib_ms:.3f} ms, copy_ on int32 (v4) "
+        f"{i32_ms:.3f} ms [{card}]")
+    del sel
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err.max, "ms": ms, "plain_ms": plain_ms, **bound(nb, 0),
+            "library_ms": lib_ms, "library_i32_ms": i32_ms,
+            "shape": f"sel [{nby * nbx}, {ts}, {ts * 3}] u8 (the tool's 1.61 GB band)"}
+
+
 def phase_c_tint_lut(torch, gen, dev, card) -> None:
     from emosaic_tpu_torch.ops import composite, distance, lut
 
@@ -454,28 +608,35 @@ def phase_c_tint_lut(torch, gen, dev, card) -> None:
         f"{t1 - t0:.3f} s, CPU {t2 - t1:.3f} s [{card}]")
 
 
-def _no_fallback():
-    """Context: make both plain versions raise, so a run that completes
-    went through the kernels."""
+def _no_fallback(lab: bool = False):
+    """Context: make the plain versions of the main path's kernels raise
+    (with `lab`, those of the composite lab kernels K5 to K8), so a run
+    that completes went through the kernels."""
     import contextlib
 
-    from emosaic_tpu_torch.ops import composite, distance
+    from emosaic_tpu_torch.ops import composite, composite_lab, distance
+
+    if lab:
+        names = [(composite_lab, n) for n in
+                 ("floor_write_ref", "compose_rows_bulk_ref", "band_transpose_ref")]
+    else:
+        names = [(distance, "l1_argmin_ref"), (composite, "compose_rows_ref"),
+                 (distance, "_l1_rows_ref"), (distance, "_seg_topcap_ref")]
 
     @contextlib.contextmanager
     def ctx():
-        saved = (distance.l1_argmin_ref, composite.compose_rows_ref,
-                 distance._l1_rows_ref, distance._seg_topcap_ref)
+        saved = [getattr(mod, name) for mod, name in names]
 
         def refuse(*a, **k):
             raise AssertionError("a CUDA tensor reached a plain version")
 
-        distance.l1_argmin_ref = composite.compose_rows_ref = refuse
-        distance._l1_rows_ref = distance._seg_topcap_ref = refuse
+        for mod, name in names:
+            setattr(mod, name, refuse)
         try:
             yield
         finally:
-            (distance.l1_argmin_ref, composite.compose_rows_ref,
-             distance._l1_rows_ref, distance._seg_topcap_ref) = saved
+            for (mod, name), fn in zip(names, saved):
+                setattr(mod, name, fn)
 
     return ctx()
 
@@ -901,15 +1062,26 @@ def phase_n(torch, gen, dev, card, t=32767, side=4096, t2=16384) -> dict:
 
 
 def phase_l(torch, dev, card) -> dict:
-    """The lab probes: K4 in the coarse pass at the 200k shape, and the
-    device-memory accounting of the scorer at a 2M-row library."""
-    from emosaic_tpu_torch.probes import flatdma, seg8
+    """The lab probes: K4 in the coarse pass at the 200k shape, the
+    device-memory accounting of the scorer at a 2M-row library, and the
+    composite lab kernels K5 to K8 at the TPU tools' bands, with their
+    plain versions raising; returns the probes' results and the launches
+    of this path's run."""
+    from emosaic_tpu_torch.ops._kernels import KERNELS
+    from emosaic_tpu_torch.probes import composite_variants, flatdma, r3_composite, seg8
 
-    seg = seg8.probe(dev, card)
-    torch.cuda.empty_cache()
-    mem = flatdma.probe(dev, card)
-    torch.cuda.empty_cache()
-    return {"seg8": seg, "flatdma": mem}
+    for k in KERNELS:
+        k.launches = 0
+    out = {}
+    with _no_fallback(lab=True):
+        for name, mod in (("seg8", seg8), ("flatdma", flatdma), ("r3", r3_composite),
+                          ("variants", composite_variants)):
+            log(f"-- L probes/{mod.__name__.rsplit('.', 1)[1]}.py")
+            out[name] = mod.probe(dev, card)
+            torch.cuda.empty_cache()
+    out["launches"] = {k.name: k.launches for k in KERNELS}
+    log(f"L launches in the lab probes' run: {out['launches']}")
+    return out
 
 
 def phase_h(torch, gen, dev, card, t_tiles=100000, side4=2048, t=32767, side_n=4096,
@@ -1179,6 +1351,9 @@ def main() -> int:
         k2 = phase_c_k2(torch, gen, dev, card)
         k3 = phase_c_k3(torch, gen, dev, card)
         k4 = phase_c_k4(torch, gen, dev, card)
+        k5 = phase_c_k5(torch, gen, dev, card)
+        k6, k7 = phase_c_k6_k7(torch, gen, dev, card)
+        k8 = phase_c_k8(torch, gen, dev, card)
         phase_c_tint_lut(torch, gen, dev, card)
         phase_c_no_fallback(torch, gen, dev)
         log("== D. main path at the BASELINE size")
@@ -1189,6 +1364,7 @@ def main() -> int:
         launches_n = n["launches"]
         log("== L. the lab probes")
         lab = phase_l(torch, dev, card)
+        launches_l = lab["launches"]
         log("== H. the hybrid, L2 and random paths at full width")
         h = phase_h(torch, gen, dev, card)
         launches_h = h["launches"]
@@ -1197,7 +1373,9 @@ def main() -> int:
         log("== F. counters")
         for path, counts, names in [("D", launches_d, ("l1_argmin", "compose")),
                                     ("N", launches_n, ("l1_rows", "seg_topcap", "compose")),
-                                    ("H", launches_h, ("l1_rows", "compose"))]:
+                                    ("H", launches_h, ("l1_rows", "compose")),
+                                    ("L", launches_l, ("floor_write", "compose_bulk",
+                                                       "compose_bulk2", "band_transpose"))]:
             for name in names:
                 log(f"{name}: {counts[name]} launches in {path}")
                 check(counts[name] > 0, f"{name} was not launched by the {path} path")
@@ -1210,6 +1388,10 @@ def main() -> int:
         (KERNELS[1], k2, "emosaic_tpu/ops/composite.py:119", launches_d),
         (KERNELS[2], k3, "emosaic_tpu/ops/distance.py:1535", launches_n),
         (KERNELS[3], k4, "tools/tpu_r14_seg8.py:62", launches_n),
+        (KERNELS[4], k5, "tools/tpu_r3_experiments.py:171", launches_l),
+        (KERNELS[5], k6, "tools/tpu_r3_experiments2.py:188", launches_l),
+        (KERNELS[6], k7, "tools/tpu_r3_experiments3.py:67", launches_l),
+        (KERNELS[7], k8, "tools/tpu_bench_composite_variants.py:43", launches_l),
     ]:
         rows.append({
             "name": k.name, "route": "cuda",
@@ -1226,6 +1408,14 @@ def main() -> int:
                    shape_200k_chunk=f"[{seg['rows']}, {seg['lp']}] cap {seg['cap']}",
                    coarse_k4_s_200k=seg["coarse_k4_s"],
                    coarse_plain_s_200k=seg["coarse_plain_s"])
+    r3, cv = lab["r3"]["ms"], lab["variants"]["ms"]
+    rows[5]["also_replaces"] = "tools/tpu_r3_experiments3.py:102"
+    rows[4].update(ms_probe_c5=r3["C5"], fill_ms_probe_c5=r3["C5_fill"])
+    rows[5].update(ms_probe_c6=r3["C6"], ms_probe_c9=r3["C9"], run_c=lab["r3"]["run"])
+    rows[6].update(ms_probe_c1=r3["C1"], ms_probe_c8=r3["C8"], ms_probe_c10=r3["C10"],
+                   run_c=lab["r3"]["run"])
+    rows[7].update(ms_probe_relayout=cv["relayout K8"], ms_probe_v3d=cv["v3d"],
+                   ms_probe_v1=cv["v1"], ms_probe_v4=cv["v4"], ms_probe_k2=cv["K2"])
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -36,27 +36,29 @@ def _nvcc() -> str:
 
 
 class CudaKernel:
-    """One `csrc/<name>.cu` library and its C entry point.
+    """One C entry point of a `csrc/<source>.cu` library (`source` defaults
+    to `name`; kernels that share a source share its library).
 
     `launches` counts the calls that launched the kernel; the callers'
     wrappers are the only place that calls `launch`.
     """
 
-    def __init__(self, name: str, symbol: str, argtypes: list):
+    def __init__(self, name: str, symbol: str, argtypes: list, source: str | None = None):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
+        self.source_name = source or name
         self.launches = 0
         self._fn = None
         self._err = None
 
     @property
     def source(self) -> Path:
-        return CSRC / f"{self.name}.cu"
+        return CSRC / f"{self.source_name}.cu"
 
     @property
     def library(self) -> Path:
-        return BUILD_DIR / f"lib{self.name}.so"
+        return BUILD_DIR / f"lib{self.source_name}.so"
 
     def build(self, force: bool = False) -> float:
         """Compile the library if it is missing or older than its source;
@@ -131,14 +133,42 @@ SEG_TOPCAP = CudaKernel(
     "emosaic_seg_topcap",
     [_I, _P, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_longlong, _I, _I, _P],
 )
-KERNELS = (L1_ARGMIN, COMPOSE, L1_ROWS, SEG_TOPCAP)
+#: csrc/floor_write.cu (see ops/composite_lab.py `floor_write`)
+FLOOR_WRITE = CudaKernel(
+    "floor_write",
+    "emosaic_floor_write",
+    [_I, _P, _P, ctypes.c_longlong, _P],
+)
+#: csrc/compose_bulk.cu, one stage (see ops/composite_lab.py `compose_rows_bulk`)
+COMPOSE_BULK = CudaKernel(
+    "compose_bulk",
+    "emosaic_compose_bulk",
+    [_I, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P],
+)
+#: csrc/compose_bulk.cu, the two-stage ring (see ops/composite_lab.py
+#: `compose_rows_bulk`)
+COMPOSE_BULK2 = CudaKernel(
+    "compose_bulk2",
+    "emosaic_compose_bulk2",
+    [_I, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P],
+    source="compose_bulk",
+)
+#: csrc/band_transpose.cu (see ops/composite_lab.py `band_transpose`)
+BAND_TRANSPOSE = CudaKernel(
+    "band_transpose",
+    "emosaic_band_transpose",
+    [_I, _P, _P, _I, _I, _I, _I, _P],
+)
+KERNELS = (L1_ARGMIN, COMPOSE, L1_ROWS, SEG_TOPCAP, FLOOR_WRITE, COMPOSE_BULK,
+           COMPOSE_BULK2, BAND_TRANSPOSE)
 
 
 def build_all(kernels=KERNELS, force: bool = False) -> dict:
-    """Build the kernels at once, one nvcc process each; returns
-    {name: seconds}. Raises the first build error."""
+    """Build the kernels' sources at once, one nvcc process per source;
+    returns {source name: seconds}. Raises the first build error."""
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(max_workers=len(kernels)) as ex:
-        futs = {k.name: ex.submit(k.build, force) for k in kernels}
+    by_source = {k.source_name: k for k in kernels}
+    with ThreadPoolExecutor(max_workers=len(by_source)) as ex:
+        futs = {name: ex.submit(k.build, force) for name, k in by_source.items()}
         return {name: f.result() for name, f in futs.items()}

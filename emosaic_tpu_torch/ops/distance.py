@@ -28,7 +28,8 @@ selection sorts on a packed int64 key (distance << 32) | row, because
 `torch.topk` does not put the lowest index first among equal values.
 
 The scorers take uint8 tensors (or numpy arrays) and compute on `device`,
-which defaults to the device of `blocks`; a library may stay on the host
+which defaults to the device of `blocks` when it is a tensor and to the
+card when it is a host array (`_device_of`); a library may stay on the host
 and is then uploaded bank by bank (`l1_topk_streamed`). They return host
 numpy arrays, like the JAX package's.
 
@@ -126,8 +127,21 @@ def _as_u8(x) -> torch.Tensor:
     return torch.from_numpy(a if a.flags.writeable else a.copy())
 
 
-def _device_of(blocks: torch.Tensor, device) -> torch.device:
-    return blocks.device if device is None else torch.device(device)
+def _device_of(blocks, device) -> torch.device:
+    """The device a public scorer runs on: `device` when given, else the
+    blocks' own when they are a tensor, else the card (host arrays run on
+    `cuda`, and raise where no GPU is visible; `device="cpu"` asks for the
+    CPU)."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(blocks, torch.Tensor):
+        return blocks.device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no GPU is visible: host arrays run on cuda by default; pass "
+            "device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")
 
 
 def _sync(dev: torch.device) -> None:
@@ -365,8 +379,8 @@ def l1_topk_stripes(blocks, lib, k: int, *, device=None):
     padding when k > L): `l1_block` stripes of bounded row chunks, each
     selected on the packed key. Returns host numpy int32 arrays.
     """
-    blocks, lib = _as_u8(blocks), _as_u8(lib)
     dev = _device_of(blocks, device)
+    blocks, lib = _as_u8(blocks), _as_u8(lib)
     b, l = blocks.shape[0], lib.shape[0]
     kk = min(k, l)
     out_d = np.empty((b, kk), np.int32)
@@ -397,8 +411,8 @@ def l1_dist_matrix(blocks, lib, *, device=None) -> np.ndarray:
     global-greedy no-repeat path's candidate lists (rendering.rs:320:
     under the reference's 32767-tile cap its 100k-NN fetch is the whole
     sorted list)."""
-    blocks, lib = _as_u8(blocks), _as_u8(lib)
     dev = _device_of(blocks, device)
+    blocks, lib = _as_u8(blocks), _as_u8(lib)
     b, l = blocks.shape[0], lib.shape[0]
     out = np.empty((b, l), np.int32)
     x, t = blocks.to(dev), lib.to(dev)
@@ -426,6 +440,7 @@ def l1_topk(blocks, lib, k: int, *, device=None, stats: dict | None = None):
       (dists [B, k] int32, rows [B, k] int32) numpy. If k > L, trailing
       entries carry I32_MAX distances.
     """
+    device = _device_of(blocks, device)
     blocks, lib = _as_u8(blocks), _as_u8(lib)
     b, l = blocks.shape[0], lib.shape[0]
     if b * l > _TOPK_MATRIX_BUDGET or (
@@ -475,8 +490,8 @@ def l1_topk_twolevel(blocks, lib, k: int, *, device=None):
     """Exact k nearest rows per block, same contract and results as
     `l1_topk_stripes`, via the segmented two-level selection with per-row
     certification and stripe fallback."""
-    blocks, lib = _as_u8(blocks), _as_u8(lib)
     dev = _device_of(blocks, device)
+    blocks, lib = _as_u8(blocks), _as_u8(lib)
     b, l = blocks.shape[0], lib.shape[0]
     lp = -(-l // _TL_SEG) * _TL_SEG
     nseg = lp // _TL_SEG
@@ -1021,8 +1036,8 @@ def l1_topk_adaptive(
     certified and fallback rows, and per-step seconds (the steps then end
     in a synchronize).
     """
-    blocks, lib = _as_u8(blocks), _as_u8(lib)
     dev = _device_of(blocks, device)
+    blocks, lib = _as_u8(blocks), _as_u8(lib)
     b, d = blocks.shape
     l = lib.shape[0]
     st = stats if stats is not None else {}
@@ -1120,8 +1135,8 @@ def l1_topk_streamed(blocks, lib, k: int, *, bank_rows: int | None = None,
     serially. EMOSAIC_STREAM_PREFETCH=0 disables the prefetch. Results are
     bit-identical either way.
     """
-    blocks, lib = _as_u8(blocks), _as_u8(lib)
     dev = _device_of(blocks, device)
+    blocks, lib = _as_u8(blocks), _as_u8(lib)
     if scorer is None:
 
         def score(bb, ll, kx, prepared=None):
@@ -1272,8 +1287,8 @@ def l1_topk_hybrid(blocks, lib, k: int, *, k_pre: int | None = None, device=None
     the exact streamed scorer. Returns host numpy int32 arrays, I32_MAX
     padded when k > L.
     """
-    blocks, lib = _as_u8(blocks), _as_u8(lib)
     dev = _device_of(blocks, device)
+    blocks, lib = _as_u8(blocks), _as_u8(lib)
     b = blocks.shape[0]
     l = lib.shape[0]
     if lib.numel() > DEVICE_LIB_BYTES_MAX and l > _TL_SEG:
@@ -1332,8 +1347,8 @@ def l2_argmin(blocks, lib, *, device=None):
     exceeds the device budget streams in banks of a third of it through
     this same function, folded on (distance, lowest row).
     """
-    blocks, lib = _as_u8(blocks), _as_u8(lib)
     dev = _device_of(blocks, device)
+    blocks, lib = _as_u8(blocks), _as_u8(lib)
     d = blocks.shape[1]
     l = lib.shape[0]
     if 3 * lib.numel() > DEVICE_LIB_BYTES_MAX and l > _TL_SEG:

@@ -1,4 +1,4 @@
-"""K1, K2, K3 and K4 against their plain torch versions on an NVIDIA GPU.
+"""K1 to K8 against their plain torch versions on an NVIDIA GPU.
 
 A CUDA kernel has no CPU mode, so these tests are marked `cuda` and skip
 on a host without a GPU. This file imports neither jax nor the JAX
@@ -11,8 +11,17 @@ import numpy as np
 import pytest
 import torch
 
-from emosaic_tpu_torch.ops import composite, distance
-from emosaic_tpu_torch.ops._kernels import COMPOSE, L1_ARGMIN, L1_ROWS, SEG_TOPCAP
+from emosaic_tpu_torch.ops import composite, composite_lab, distance
+from emosaic_tpu_torch.ops._kernels import (
+    BAND_TRANSPOSE,
+    COMPOSE,
+    COMPOSE_BULK,
+    COMPOSE_BULK2,
+    FLOOR_WRITE,
+    L1_ARGMIN,
+    L1_ROWS,
+    SEG_TOPCAP,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -158,3 +167,46 @@ def test_k4_tool_contract_and_the_coarse_pass(cuda):
         assert SEG_TOPCAP.launches == before + (dev.type == "cuda")
         outs.append((keys.cpu(), s_min.cpu()))
     assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("h,w", [(1, 16), (7, 13), (24, 6144), (3, 100003)])
+def test_k5_matches_plain(cuda, h, w):
+    seed = torch.full((8, 128), 200, dtype=torch.uint8, device=cuda)
+    seed[0, 0] = 7
+    before = FLOOR_WRITE.launches
+    got = composite_lab.floor_write(seed, h, w)
+    torch.cuda.synchronize()
+    assert FLOOR_WRITE.launches == before + 1
+    assert torch.equal(got, composite_lab.floor_write_ref(seed, h, w))
+
+
+@pytest.mark.parametrize("stages", [1, 2])
+@pytest.mark.parametrize(
+    "t,ts,nby,nbx,run", [(5, 8, 3, 128, None), (40, 16, 2, 77, 5), (9, 24, 2, 300, None),
+                         (30, 32, 3, 129, 32), (7, 64, 1, 40, 2)]
+)
+def test_k6_k7_match_plain(cuda, stages, t, ts, nby, nbx, run):
+    rng = np.random.default_rng(t * 17 + ts + stages)
+    aug, _ = composite.augment_stack2d(_u8(rng, (t, ts, ts, 3), cuda), device=cuda)
+    items = rng.integers(-t - 3, t + 4, size=(nby, nbx)).astype(np.int32)
+    items.reshape(-1)[:8] = [0, t, -t, t + 5, -(t + 5), 1, 2**31 - 1, -(2**31)]
+    it = torch.from_numpy(items).to(cuda)
+    kernel = COMPOSE_BULK if stages == 1 else COMPOSE_BULK2
+    before = kernel.launches
+    got = composite_lab.compose_rows_bulk(it, aug, stages=stages, run=run)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(got, composite_lab.compose_rows_bulk_ref(it, aug))
+    assert torch.equal(got, composite.compose_rows(it, aug))
+
+
+@pytest.mark.parametrize("ts,w,nby,nbx", [(8, 24, 3, 128), (16, 48, 2, 77), (32, 96, 2, 300),
+                                          (64, 192, 1, 40), (3, 9, 2, 5)])
+def test_k8_matches_plain(cuda, ts, w, nby, nbx):
+    rng = np.random.default_rng(ts * 3 + nbx)
+    sel = _u8(rng, (nby * nbx, ts, w), cuda)
+    before = BAND_TRANSPOSE.launches
+    got = composite_lab.band_transpose(sel, nby, nbx)
+    torch.cuda.synchronize()
+    assert BAND_TRANSPOSE.launches == before + 1
+    assert torch.equal(got, composite_lab.band_transpose_ref(sel, nby, nbx))

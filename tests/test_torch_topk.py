@@ -69,7 +69,7 @@ def test_l1_dist_matrix_matches_jax(rng):
     blocks = rng.integers(0, 256, size=(21, 12), dtype=np.uint8)
     lib = rng.integers(0, 256, size=(300, 12), dtype=np.uint8)
     np.testing.assert_array_equal(
-        P.l1_dist_matrix(blocks, lib), np.asarray(J.l1_dist_matrix(blocks, lib))
+        P.l1_dist_matrix(blocks, lib, device="cpu"), np.asarray(J.l1_dist_matrix(blocks, lib))
     )
 
 
@@ -81,15 +81,15 @@ def test_l1_topk_stripes_and_matrix_path_match_jax(rng, k):
     blocks = rng.integers(0, 256, size=(70, 12), dtype=np.uint8)
     blocks[5] = lib[7]
     want = J.l1_topk_stripes(blocks, lib, k)
-    _eq(P.l1_topk_stripes(blocks, lib, k), want)
-    _eq(P.l1_topk(blocks, lib, k), J.l1_topk(blocks, lib, k))
-    _eq(P.l1_topk_twolevel(blocks, lib, k), J.l1_topk_twolevel(blocks, lib, k))
+    _eq(P.l1_topk_stripes(blocks, lib, k, device="cpu"), want)
+    _eq(P.l1_topk(blocks, lib, k, device="cpu"), J.l1_topk(blocks, lib, k))
+    _eq(P.l1_topk_twolevel(blocks, lib, k, device="cpu"), J.l1_topk_twolevel(blocks, lib, k))
 
 
 def test_l1_topk_twolevel_tie_storm_falls_back_exactly(rng):
     lib = np.tile(rng.integers(0, 256, size=(1, 12), dtype=np.uint8), (700, 1))
     blocks = rng.integers(0, 256, size=(9, 12), dtype=np.uint8)
-    d, r = P.l1_topk_twolevel(blocks, lib, 10)
+    d, r = P.l1_topk_twolevel(blocks, lib, 10, device="cpu")
     assert (r == np.arange(10)[None, :]).all()
     _eq((d, r), J.l1_topk_twolevel(blocks, lib, 10))
 
@@ -101,7 +101,7 @@ def test_l1_topk_twolevel_clustered_segment(rng):
         lib[128 + i] = np.clip(q.astype(np.int32) + i % 3, 0, 255)
     blocks = np.stack([q, rng.integers(0, 256, size=(12,), dtype=np.uint8)])
     k = 2 * P._TL_CAP
-    _eq(P.l1_topk_twolevel(blocks, lib, k), J.l1_topk_stripes(blocks, lib, k))
+    _eq(P.l1_topk_twolevel(blocks, lib, k, device="cpu"), J.l1_topk_stripes(blocks, lib, k))
 
 
 @pytest.mark.parametrize(
@@ -112,7 +112,7 @@ def test_l1_topk_twolevel_fuzz_matches_jax(seed, b, l, d, k):
     lib = r.integers(0, 256, size=(l, d), dtype=np.uint8)
     blocks = r.integers(0, 256, size=(b, d), dtype=np.uint8)
     blocks[0] = lib[l // 2]
-    _eq(P.l1_topk_twolevel(blocks, lib, k), J.l1_topk_twolevel(blocks, lib, k))
+    _eq(P.l1_topk_twolevel(blocks, lib, k, device="cpu"), J.l1_topk_twolevel(blocks, lib, k))
 
 
 def test_l1_topk_twolevel_certifies_and_skips_the_fallback(rng, monkeypatch):
@@ -127,7 +127,7 @@ def test_l1_topk_twolevel_certifies_and_skips_the_fallback(rng, monkeypatch):
         return real(bb, ll, kk, **kw)
 
     monkeypatch.setattr(P, "l1_topk_stripes", spy)
-    got = P.l1_topk_twolevel(blocks, lib, 8)
+    got = P.l1_topk_twolevel(blocks, lib, 8, device="cpu")
     assert sum(seen) < 40
     _eq(got, J.l1_topk_stripes(blocks, lib, 8))
 
@@ -146,7 +146,7 @@ def test_l1_topk_adaptive_matches_jax(rng, case):
                 lib[pos] = blocks[0]
     want = J.l1_topk_adaptive(blocks, lib, k, m=32, cap=4)
     st = {}
-    got = P.l1_topk_adaptive(blocks, lib, k, m=32, cap=4, stats=st)
+    got = P.l1_topk_adaptive(blocks, lib, k, m=32, cap=4, stats=st, device="cpu")
     _eq(got, want)
     _eq(got, J.l1_topk(blocks, lib, k))
     if case == "clustered":
@@ -157,7 +157,7 @@ def test_l1_topk_adaptive_small_cases_route_to_twolevel(rng):
     lib = rng.integers(0, 256, size=(100, 12), dtype=np.uint8)
     blocks = rng.integers(0, 256, size=(5, 12), dtype=np.uint8)
     st = {}
-    got = P.l1_topk_adaptive(blocks, lib, 110, stats=st)
+    got = P.l1_topk_adaptive(blocks, lib, 110, stats=st, device="cpu")
     assert st["route"].startswith("twolevel")
     _eq(got, J.l1_topk_adaptive(blocks, lib, 110))
 
@@ -170,7 +170,7 @@ def test_l1_topk_routes_large_through_adaptive(rng, monkeypatch):
     calls = []
     real = P.l1_topk_adaptive
     monkeypatch.setattr(P, "l1_topk_adaptive", lambda *a, **k: calls.append(1) or real(*a, **k))
-    _eq(P.l1_topk(blocks, lib, 7), J.l1_topk(blocks, lib, 7))
+    _eq(P.l1_topk(blocks, lib, 7, device="cpu"), J.l1_topk(blocks, lib, 7))
     assert calls
 
 
@@ -179,7 +179,7 @@ def test_adaptive_k1_argmin_tie_break(rng):
     lib = base.copy()
     lib[1200:1250] = lib[100:150]
     blocks = lib[rng.integers(0, 1500, size=40)]
-    da, ra = P.l1_topk_adaptive(blocks, lib, 1, m=32, cap=4)
+    da, ra = P.l1_topk_adaptive(blocks, lib, 1, m=32, cap=4, device="cpu")
     dx, rx = J.l1_argmin_xla(blocks, lib)
     _eq((da[:, 0], ra[:, 0]), (dx, rx))
 
@@ -193,7 +193,7 @@ def test_l1_topk_adaptive_stride_aligned_cluster_stays_exact(rng):
     for i in range(12):
         lib[7 + i * nseg] = np.clip(q[0].astype(np.int32) + (i % 3) - 1, 0, 255)
     blocks = np.vstack([q, rng.integers(0, 256, size=(7, d), dtype=np.uint8)])
-    _eq(P.l1_topk_adaptive(blocks, lib, k, m=m, cap=cap),
+    _eq(P.l1_topk_adaptive(blocks, lib, k, m=m, cap=cap, device="cpu"),
         J.l1_topk_adaptive(blocks, lib, k, m=m, cap=cap))
 
 
@@ -220,7 +220,7 @@ def test_l1_topk_adaptive_fuzz_matches_jax(monkeypatch, seed, dist_kind, b, l, d
     calls = []
     real = P._ad_coarse
     monkeypatch.setattr(P, "_ad_coarse", lambda *a, **kw: calls.append(1) or real(*a, **kw))
-    got = P.l1_topk_adaptive(blocks, lib, k, m=m, cap=cap)
+    got = P.l1_topk_adaptive(blocks, lib, k, m=m, cap=cap, device="cpu")
     assert calls, "shapes rerouted at the entry gate: the fuzz is dead"
     _eq(got, J.l1_topk_stripes(blocks, lib, k))
 
@@ -240,7 +240,7 @@ def test_l1_topk_adaptive_block_slicing_and_sample_gate(rng, monkeypatch):
 
     monkeypatch.setattr(P, "_run_block_slices", spy)
     st = {}
-    got = P.l1_topk_adaptive(blocks, lib, 4, m=64, stats=st)
+    got = P.l1_topk_adaptive(blocks, lib, 4, m=64, stats=st, device="cpu")
     assert seen == [256] and st["route"] == "adaptive" and st["certified"] == 300
     _eq(got, J.l1_topk_adaptive(blocks, lib, 4, m=64))
 
@@ -249,7 +249,7 @@ def test_l1_topk_adaptive_sample_gate_reroutes_concentrated(rng):
     lib = rng.integers(0, 256, size=(3000, 48), dtype=np.uint8)
     blocks = rng.integers(0, 256, size=(200, 48), dtype=np.uint8)
     st = {}
-    got = P.l1_topk_adaptive(blocks, lib, 5, m=32, stats=st)
+    got = P.l1_topk_adaptive(blocks, lib, 5, m=32, stats=st, device="cpu")
     assert st["route"] == "twolevel (sample gate)"
     _eq(got, J.l1_topk_adaptive(blocks, lib, 5, m=32))
 
@@ -274,12 +274,12 @@ def test_ad_plan_matches_jax_on_the_cpu_and_uses_k3_on_cuda():
 
 def test_l1_topk_adaptive_prepared_handle_bit_identical(rng):
     blocks, lib = _runs(rng, 2000, 48, 33, 40)
-    want = P.l1_topk_adaptive(blocks, lib, 4, m=32)
+    want = P.l1_topk_adaptive(blocks, lib, 4, m=32, device="cpu")
     handle = P._ad_prepare(lib, 48)
-    _eq(P.l1_topk_adaptive(blocks, lib, 4, m=32, prepared=handle), want)
+    _eq(P.l1_topk_adaptive(blocks, lib, 4, m=32, prepared=handle, device="cpu"), want)
     _eq(want, J.l1_topk_adaptive(blocks, lib, 4, m=32))
     with pytest.raises(ValueError, match="prepared banks"):
-        P.l1_topk_adaptive(blocks, lib[:1500], 4, m=32, prepared=handle)
+        P.l1_topk_adaptive(blocks, lib[:1500], 4, m=32, prepared=handle, device="cpu")
 
 
 def test_ad_prepare_declines_ineligible_banks(rng):
@@ -298,7 +298,7 @@ def test_ad_prepare_declines_ineligible_banks(rng):
 def test_l1_topk_streamed_ragged_banks_with_ties(rng):
     lib = (rng.integers(0, 3, size=(1000, 12)) * 16).astype(np.uint8)
     blocks = (rng.integers(0, 3, size=(32, 12)) * 16).astype(np.uint8)
-    _eq(P.l1_topk_streamed(blocks, lib, 20, bank_rows=256),
+    _eq(P.l1_topk_streamed(blocks, lib, 20, bank_rows=256, device="cpu"),
         J.l1_topk_streamed(blocks, lib, 20, bank_rows=256))
 
 
@@ -306,7 +306,7 @@ def test_l1_topk_streamed_k_exceeds_bank_and_library(rng):
     lib = rng.integers(0, 256, size=(600, 12), dtype=np.uint8)
     blocks = rng.integers(0, 256, size=(9, 12), dtype=np.uint8)
     for k in (300, 1200):
-        got = P.l1_topk_streamed(blocks, lib, k, bank_rows=256)
+        got = P.l1_topk_streamed(blocks, lib, k, bank_rows=256, device="cpu")
         _eq(got, J.l1_topk_stripes(blocks, lib, k))
     assert (got[0][:, 600:] == P.I32_MAX).all() and (got[1][:, 600:] == 0).all()
 
@@ -336,15 +336,15 @@ def test_gates_route_oversized_libraries_to_the_stream(rng, monkeypatch):
     monkeypatch.setattr(P, "l1_topk_streamed", lambda *a, **k: calls.append(1) or real(*a, **k))
     monkeypatch.setattr(J, "_DEVICE_LIB_BYTES_MAX", 1024 * d)
     monkeypatch.setattr(P, "DEVICE_LIB_BYTES_MAX", 1024 * d)
-    _eq(P.l1_topk_adaptive(blocks, lib, 4), J.l1_topk_adaptive(blocks, lib, 4))
+    _eq(P.l1_topk_adaptive(blocks, lib, 4, device="cpu"), J.l1_topk_adaptive(blocks, lib, 4))
     assert len(calls) == 1  # gated once; per-bank calls stay direct
-    _eq(P.l1_topk(blocks[:5], lib, 6), J.l1_topk(blocks[:5], lib, 6))
+    _eq(P.l1_topk(blocks[:5], lib, 6, device="cpu"), J.l1_topk(blocks[:5], lib, 6))
     dd, rr = P.l1_argmin(torch.from_numpy(blocks), torch.from_numpy(lib))
     _eq((dd.numpy(), rr.numpy()), J.l1_argmin_xla(blocks, lib))
     assert len(calls) == 3
     # no blocks: empty results, no recursion between the gates
     empty = np.empty((0, d), np.uint8)
-    assert P.l1_topk_adaptive(empty, lib, 5)[0].shape == (0, 5)
+    assert P.l1_topk_adaptive(empty, lib, 5, device="cpu")[0].shape == (0, 5)
     dm, _ = P.l1_argmin(torch.from_numpy(empty), torch.from_numpy(lib))
     assert dm.shape == (0,)
 
@@ -372,11 +372,11 @@ def test_l1_topk_streamed_custom_scorer_and_prefetch(rng, monkeypatch):
 
     scorer.prepare = lambda ll, dd_, b=None, kx=None: P._ad_prepare(ll, dd_)
     want = J.l1_topk_stripes(blocks, lib, 6)
-    _eq(P.l1_topk_streamed(blocks, lib, 6, bank_rows=256, scorer=scorer), want)
+    _eq(P.l1_topk_streamed(blocks, lib, 6, bank_rows=256, scorer=scorer, device="cpu"), want)
     assert got == [256, 256, 256, 132]
     got.clear()
     monkeypatch.setenv("EMOSAIC_STREAM_PREFETCH", "0")
-    _eq(P.l1_topk_streamed(blocks, lib, 6, bank_rows=256, scorer=scorer), want)
+    _eq(P.l1_topk_streamed(blocks, lib, 6, bank_rows=256, scorer=scorer, device="cpu"), want)
     assert got == [None] * 4
 
 
@@ -396,14 +396,14 @@ def test_l1_topk_streamed_bank_sizing(rng, monkeypatch, capsys):
 
     scorer.prepare = lambda ll, dd_, b=None, kx=None: P._ad_prepare(ll, dd_)
     want = J.l1_topk_stripes(blocks, lib, 3)
-    _eq(P.l1_topk_streamed(blocks, lib, 3, scorer=scorer), want)
+    _eq(P.l1_topk_streamed(blocks, lib, 3, scorer=scorer, device="cpu"), want)
     assert seen == [512] * 5 + [440]
     seen.clear(), handles.clear()
-    _eq(P.l1_topk_streamed(blocks, lib, 3, bank_rows=1024, scorer=scorer), want)
+    _eq(P.l1_topk_streamed(blocks, lib, 3, bank_rows=1024, scorer=scorer, device="cpu"), want)
     assert handles == [False] * 3
     assert "prefetch disabled" in capsys.readouterr().err
     handles.clear()
-    _eq(P.l1_topk_streamed(blocks, lib, 3, bank_rows=512, scorer=scorer), want)
+    _eq(P.l1_topk_streamed(blocks, lib, 3, bank_rows=512, scorer=scorer, device="cpu"), want)
     assert handles == [True] * 6
 
 
@@ -419,7 +419,7 @@ def test_l1_topk_streamed_prefetch_error_propagates(rng):
 
     scorer.prepare = bad_prepare
     with pytest.raises(RuntimeError, match="prefetch boom"):
-        P.l1_topk_streamed(blocks, lib, 3, bank_rows=256, scorer=scorer)
+        P.l1_topk_streamed(blocks, lib, 3, bank_rows=256, scorer=scorer, device="cpu")
 
 
 def test_streamed_dispatch_fuzz_matches_jax(rng):
@@ -433,7 +433,7 @@ def test_streamed_dispatch_fuzz_matches_jax(rng):
         lib = (rng.integers(0, card, size=(l, d)) * q).astype(np.uint8)
         blocks = (rng.integers(0, card, size=(b, d)) * q).astype(np.uint8)
         bank = int(rng.integers(1, 9)) * P._TL_SEG
-        _eq(P.l1_topk_streamed(blocks, lib, k, bank_rows=bank),
+        _eq(P.l1_topk_streamed(blocks, lib, k, bank_rows=bank, device="cpu"),
             J.l1_topk_stripes(blocks, lib, k))
 
 
@@ -471,7 +471,7 @@ def test_adaptive_audit_catches_certified_lie(rng, monkeypatch, capsys):
     monkeypatch.setattr(P, "_ad_rescore", lying_rescore)
     monkeypatch.setenv("EMOSAIC_AUDIT_ROWS", "1")
     st = {}
-    got = P.l1_topk_adaptive(blocks, lib, 8, m=32, cap=4, stats=st)
+    got = P.l1_topk_adaptive(blocks, lib, 8, m=32, cap=4, stats=st, device="cpu")
     _eq(got, J.l1_topk(blocks, lib, 8))
     assert st["audit"] and "EXACTNESS AUDIT FAILED" in capsys.readouterr().err
 
@@ -490,7 +490,7 @@ def test_adaptive_audit_projection_displacement_stays_exact(rng, monkeypatch):
 
     monkeypatch.setattr(P, "_ad_coarse_lib", displaced)
     monkeypatch.setenv("EMOSAIC_AUDIT_ROWS", "1")
-    _eq(P.l1_topk_adaptive(blocks, lib, 8, m=32, cap=4), J.l1_topk(blocks, lib, 8))
+    _eq(P.l1_topk_adaptive(blocks, lib, 8, m=32, cap=4, device="cpu"), J.l1_topk(blocks, lib, 8))
 
 
 def test_adaptive_audit_gating(rng, monkeypatch, capsys):
@@ -503,11 +503,62 @@ def test_adaptive_audit_gating(rng, monkeypatch, capsys):
         return dd + 1, rr, torch.ones_like(ok)
 
     monkeypatch.setattr(P, "_ad_rescore", lying_rescore)
-    got_d, _ = P.l1_topk_adaptive(blocks, lib, 8, m=32, cap=4)
+    got_d, _ = P.l1_topk_adaptive(blocks, lib, 8, m=32, cap=4, device="cpu")
     assert (got_d == want_d + 1).all()  # below the row threshold: no audit
     monkeypatch.setenv("EMOSAIC_AUDIT_ROWS", "1")
     monkeypatch.setenv("EMOSAIC_AUDIT", "0")
-    got_d, _ = P.l1_topk_adaptive(blocks, lib, 8, m=32, cap=4)
+    got_d, _ = P.l1_topk_adaptive(blocks, lib, 8, m=32, cap=4, device="cpu")
     assert (got_d == want_d + 1).all()
     assert "EXACTNESS AUDIT" not in capsys.readouterr().err
     assert P._audit_would_run(P._AUDIT_MIN_ROWS, 1, 1) == J._audit_would_run(J._AUDIT_MIN_ROWS, 1, 1)
+
+
+# ---------------------------------------------------------------------------
+# the device a host-array call runs on
+# ---------------------------------------------------------------------------
+
+#: the nine public scorers, (port call, JAX call), on [B, D] blocks and an
+#: [L, D] library; L = 200 <= 256 keeps the hybrid on its exact stripes
+_PUBLIC_SCORERS = {
+    "l1_topk_stripes": (lambda b, l, **kw: P.l1_topk_stripes(b, l, 5, **kw),
+                        lambda b, l: J.l1_topk_stripes(b, l, 5)),
+    "l1_dist_matrix": (lambda b, l, **kw: (P.l1_dist_matrix(b, l, **kw),) * 2,
+                       lambda b, l: (np.asarray(J.l1_dist_matrix(b, l)),) * 2),
+    "l1_topk": (lambda b, l, **kw: P.l1_topk(b, l, 5, **kw),
+                lambda b, l: J.l1_topk(b, l, 5)),
+    "l1_topk_twolevel": (lambda b, l, **kw: P.l1_topk_twolevel(b, l, 5, **kw),
+                         lambda b, l: J.l1_topk_twolevel(b, l, 5)),
+    "l1_topk_adaptive": (lambda b, l, **kw: P.l1_topk_adaptive(b, l, 5, **kw),
+                         lambda b, l: J.l1_topk_adaptive(b, l, 5)),
+    "l1_topk_streamed": (lambda b, l, **kw: P.l1_topk_streamed(b, l, 5, bank_rows=128, **kw),
+                         lambda b, l: J.l1_topk_streamed(b, l, 5, bank_rows=128)),
+    "l1_topk_hybrid": (lambda b, l, **kw: P.l1_topk_hybrid(b, l, 5, **kw),
+                       lambda b, l: J.l1_topk_hybrid(b, l, 5)),
+    "l1_argmin_hybrid": (lambda b, l, **kw: P.l1_argmin_hybrid(b, l, **kw),
+                         lambda b, l: J.l1_argmin_hybrid(b, l)),
+    "l2_argmin": (lambda b, l, **kw: P.l2_argmin(b, l, **kw),
+                  lambda b, l: J.l2_argmin(b, l)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_PUBLIC_SCORERS))
+def test_host_arrays_run_on_the_card_unless_the_cpu_is_asked_for(rng, monkeypatch, name):
+    """A host-array call with no `device` runs on `cuda`, so it raises where
+    no GPU is visible; `device="cpu"` equals the JAX scorer; a tensor keeps
+    its own device."""
+    port, jax_call = _PUBLIC_SCORERS[name]
+    lib = rng.integers(0, 256, size=(200, 12), dtype=np.uint8)
+    blocks = rng.integers(0, 256, size=(9, 12), dtype=np.uint8)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no GPU is visible"):
+        port(blocks, lib)
+    want = jax_call(blocks, lib)
+    _eq(port(blocks, lib, device="cpu"), want)
+    _eq(port(torch.from_numpy(blocks), torch.from_numpy(lib)), want)
+
+
+def test_device_of_prefers_the_asked_device_then_the_tensor(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert P._device_of(np.zeros((1, 3), np.uint8), None) == torch.device("cuda")
+    assert P._device_of(np.zeros((1, 3), np.uint8), "cpu") == torch.device("cpu")
+    assert P._device_of(torch.zeros((1, 3), dtype=torch.uint8), None) == torch.device("cpu")
