@@ -13,7 +13,11 @@ Run from the root of a checkout. Phases, each printing its own lines:
   C  each kernel against its plain torch version on the card, exactly:
      K1 (L1 argmin), K2 (composite), K3 (shortlist rescore) and K4
      (segment top-cap) at test and main-path shapes, K3 and K4 also past
-     4 GiB; the composite lab kernels K5 (write floor), K6 and K7 (the
+     4 GiB; K1 also on tie storms, at D = 49152 and 65800 and across D
+     (12..3072 at B=4096, L=200000, in T byte pairs/s), K3 on both of its
+     paths with ragged groups; the CUDA cores' VABSDIFF4 rate, derived and
+     measured, and its share of K1's code (`cuobjdump -sass`); the
+     composite lab kernels K5 (write floor), K6 and K7 (the
      band through bulk copies, one stage and a two-stage ring) and K8
      (relayout of gathered tiles) at ts 8..64 and nbx 77..4096 with edge
      items, at the BASELINE band and past 4 GiB (K5's band; K6 and K7 on a
@@ -28,7 +32,8 @@ Run from the root of a checkout. Phases, each printing its own lines:
      `render_nto1_no_repeat`: 32767 clustered synthetic tiles, mode 32 on
      a 4096^2 source (the adaptive scorer: K4 in its coarse pass, K3 in
      its rescore; the native greedy engine with device refills; K2), its
-     candidate lists against the two-level scorer's, the worst case
+     candidate lists against the two-level scorer's, K3 timed on those
+     lists' own rescore inputs with their reuse, the worst case
      (uniform data) through `l1_topk`, and a full-library-consumption
      assignment with device refills against host scans;
   L  the lab probes, with the composite lab kernels' plain versions made
@@ -63,7 +68,12 @@ input read once, each output written once; for gathers, the rows this
 run's indices reach) over 3.35 TB/s, and its integer operations (an
 absolute difference and an add per byte pair; none counted for K4's
 selection) over 1979 TOP/s, the H100 SXM's published HBM rate and int8
-peak at its 700 W limit.
+peak at its 700 W limit. K1 and K3 also carry `ceiling_ms`: exact L1 on
+u8 has no tensor-core form at a useful cost, so the least time their
+CUDA-core work can take is the byte pairs over the VABSDIFF4 rate (SMs x
+64 lanes x 4 byte pairs x the maximum SM clock, or what a pure VABSDIFF4
+kernel reaches on the card, whichever is larger), or the bytes over the
+HBM rate if that is longer (`ceiling_by` states the derivation).
 """
 
 from __future__ import annotations
@@ -126,6 +136,68 @@ def bound(nbytes: float, ops: float) -> dict:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = ops / INT8_OPS_PER_S * 1e3
     return {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations"}
+
+
+def vsad_rate(torch, dev, card) -> dict:
+    """The CUDA cores' rate of byte absolute differences, the limit K1 and
+    K3 can reach (exact L1 on u8 has no tensor-core form at a useful cost):
+    derived as SMs x 64 VABSDIFF4 lanes per clock x 4 byte pairs x the
+    card's maximum SM clock, and measured with the pure VABSDIFF4 kernel
+    of `csrc/l1_argmin.cu` (8 independent chains a thread, 8 blocks of 256
+    threads per SM). The ceiling uses the larger of the two."""
+    import ctypes
+
+    from emosaic_tpu_torch.ops._kernels import L1_ARGMIN
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    derived = sms * 64 * 4 * mhz * 1e6
+    fn = ctypes.CDLL(str(L1_ARGMIN.library)).emosaic_vsad_rate
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    blocks, iters = sms * 8, 2048
+
+    def run():
+        check(fn(dev.index, out.data_ptr(), blocks, iters, stream) == 0, "vsad_rate launch")
+
+    ms = cuda_ms(torch, run, reps=3)
+    measured = blocks * 256 * 8 * 16 * iters * 4 / (ms * 1e-3)
+    log(f"VABSDIFF4 rate: derived {sms} SMs x 64 lanes x 4 byte pairs x {mhz:.0f} MHz = "
+        f"{derived / 1e12:.2f} T byte pairs/s; a pure VABSDIFF4 kernel reached "
+        f"{measured / 1e12:.2f} [{card}]")
+    return {"rate": max(derived, measured), "derived": derived, "measured": measured,
+            "how": f"{sms} SMs x 64 VABSDIFF4 lanes x 4 byte pairs x {mhz:.0f} MHz = "
+                   f"{derived / 1e12:.2f} T byte pairs/s; a pure VABSDIFF4 kernel "
+                   f"measured {measured / 1e12:.2f}; the larger"}
+
+
+def ceiling(nbytes: float, pairs: float, rate: dict) -> dict:
+    """The least time the CUDA cores could take: the byte pairs at the
+    VABSDIFF4 rate, or the bytes at the memory rate, whichever is larger."""
+    return {"ceiling_ms": max(pairs / rate["rate"], nbytes / HBM_BYTES_PER_S) * 1e3,
+            "ceiling_by": rate["how"]}
+
+
+def sass_share(lib: Path, name_part: str) -> float:
+    """The VABSDIFF4 share of one kernel's instructions in the built library
+    (`cuobjdump -sass`, static count of the kernel's code)."""
+    import re
+
+    from emosaic_tpu_torch.ops._kernels import _nvcc
+
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    for part in text.split("Function : ")[1:]:
+        if name_part in part.split("\n", 1)[0]:
+            ops = [m.group(1) for m in re.finditer(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", part)]
+            return sum(o == "VABSDIFF4" for o in ops) / max(1, len(ops))
+    raise AssertionError(f"no kernel named like {name_part} in {lib}")
 
 
 class Err:
@@ -195,8 +267,9 @@ def _u8(torch, gen, shape, dev):
     return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
 
 
-def phase_c_k1(torch, gen, dev, card) -> dict:
+def phase_c_k1(torch, gen, dev, card, rate) -> dict:
     from emosaic_tpu_torch.ops import distance
+    from emosaic_tpu_torch.ops._kernels import L1_ARGMIN
 
     err = Err()
     shapes = [(1, 3, 3), (5, 700, 12), (300, 513, 12), (70, 100, 200),
@@ -224,6 +297,40 @@ def phase_c_k1(torch, gen, dev, card) -> dict:
     torch.cuda.synchronize()
     check(bool((row == 0).all()), "K1: all-equal library must give row 0")
     log("K1 tie storms: lowest row wins, exact")
+    # the widest rows: all-0 blocks against an all-255 library tie over the
+    # whole library (across tiles and splits) at distances past 2^24; then
+    # one row of the ragged last tile one lower wins
+    for d in (49152, 65800):
+        blocks = torch.zeros((3, d), dtype=torch.uint8, device=dev)
+        lib = torch.full((300, d), 255, dtype=torch.uint8, device=dev)
+        got = distance.l1_argmin(blocks, lib)
+        torch.cuda.synchronize()
+        check(bool((got[0] == 255 * d).all()) and bool((got[1] == 0).all()),
+              f"K1 D={d}: the all-255 tie must give row 0")
+        err.add(torch, torch.stack(got), torch.stack(distance.l1_argmin_ref(blocks, lib)),
+                f"K1 D={d} tie")
+        lib[290, 7] = 254
+        got = distance.l1_argmin(blocks, lib)
+        torch.cuda.synchronize()
+        check(bool((got[0] == 255 * d - 1).all()) and bool((got[1] == 290).all()),
+              f"K1 D={d}: row 290 one lower must win")
+        log(f"K1 D={d}: all-0 blocks vs an all-255 library give {255 * d} at row 0 (ties "
+            "across tiles and splits); one row of the ragged last tile one lower wins: exact")
+        del blocks, lib
+    # across D at B=4096 against 200k rows (exact on a sample of queries)
+    l = 200000
+    by_d = {}
+    for d in (12, 48, 192, 768, 3072):
+        blocks, lib = _u8(torch, gen, (4096, d), dev), _u8(torch, gen, (l, d), dev)
+        got = distance.l1_argmin(blocks, lib)
+        s = torch.arange(0, 4096, 256 if d >= 768 else 64, device=dev)
+        err.add(torch, torch.stack(got)[:, s], torch.stack(distance.l1_argmin_ref(blocks[s], lib)),
+                f"K1 B=4096 D={d} (sample)")
+        by_d[d] = cuda_ms(torch, lambda: distance.l1_argmin(blocks, lib), reps=3)
+        log(f"K1 B=4096 L={l} D={d}: {by_d[d]:.3f} ms, {4096 * l * d / by_d[d] / 1e9:.2f} "
+            f"T byte pairs/s (sample exact) [{card}]")
+        del blocks, lib
+    torch.cuda.empty_cache()
     # the main-path shape: a 2048^2 source at mode 4 against 100k tiles
     b, l, d = 262144, 200000, 48
     blocks, lib = _u8(torch, gen, (b, d), dev), _u8(torch, gen, (l, d), dev)
@@ -239,16 +346,26 @@ def phase_c_k1(torch, gen, dev, card) -> dict:
     sub = blocks[sample].contiguous()
     ms = cuda_ms(torch, lambda: distance.l1_argmin(sub, lib), reps=5)
     plain_ms = cuda_ms(torch, lambda: distance.l1_argmin_ref(sub, lib), reps=2)
-    ops = b * l * d
+    pairs = b * l * d
+    nb_full = blocks.numel() + lib.numel() + 8 * b
+    ceil_full = ceiling(nb_full, pairs, rate)
+    share = sass_share(L1_ARGMIN.library, "l1_argmin_regILi12E")
     log(f"K1 B={b} L={l} D={d}: first call {first_s:.3f} s; {ms_full:.3f} ms "
-        f"per call = {ops / ms_full / 1e9:.2f} T byte-absdiffs/s [{card}]")
+        f"per call = {pairs / ms_full / 1e9:.2f} T byte pairs/s; CUDA-core ceiling "
+        f"{ceil_full['ceiling_ms']:.2f} ms ({100 * ceil_full['ceiling_ms'] / ms_full:.1f}% of "
+        f"it reached); VABSDIFF4 share of the D=48 kernel's SASS {share:.3f} [{card}]")
     log(f"K1 B=4096 L={l} D={d}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms [{card}]")
     nb = sub.numel() + lib.numel() + 8 * sub.shape[0]
+    del blocks, lib, sub
+    torch.cuda.empty_cache()
     # no single torch call computes an L1 argmin (cdist + argmin is two)
     return {"max_abs_err": err.max, "ms": ms, "plain_ms": plain_ms,
-            **bound(nb, 2.0 * sub.shape[0] * l * d), "library_ms": None,
-            "shape": f"B=4096 L={l} D={d}", "ms_main_path_shape": ms_full,
-            "main_path_shape": f"B={b} L={l} D={d}"}
+            **bound(nb, 2.0 * 4096 * l * d), **ceiling(nb, 4096 * l * d, rate),
+            "library_ms": None, "shape": f"B=4096 L={l} D={d}",
+            "ms_main_path_shape": ms_full, "main_path_shape": f"B={b} L={l} D={d}",
+            "bound_ms_main_path_shape": bound(nb_full, 2.0 * pairs)["bound_ms"],
+            "ceiling_ms_main_path_shape": ceil_full["ceiling_ms"],
+            "ms_by_d_b4096_l200000": by_d, "vabsdiff4_sass_share_d48": share}
 
 
 def edge_items(torch, gen, dev, t, nby, nbx):
@@ -327,8 +444,9 @@ def phase_c_k2(torch, gen, dev, card) -> dict:
             "library_ms": None, "shape": "items [32, 4096], T=100000, ts=32"}
 
 
-def phase_c_k3(torch, gen, dev, card) -> dict:
+def phase_c_k3(torch, gen, dev, card, rate) -> dict:
     from emosaic_tpu_torch.ops import distance
+    from emosaic_tpu_torch.probes.k1_k3 import reuse
 
     err = Err()
 
@@ -348,7 +466,11 @@ def phase_c_k3(torch, gen, dev, card) -> dict:
     for d in dims:
         for m in ms_:
             one(5, 2000 if d < 49152 else 200, d, m, "K3")
-    log(f"K3 D {dims} x m {ms_}: exact")
+    for d, m in ((768, 1024), (3072, 1024), (3072, 2000), (49152, 300)):
+        one(37, 2000 if d < 49152 else 200, d, m, "K3 ragged groups")
+    log(f"K3 D {dims} x m {ms_} (B=5: one ragged group), and B=37 on the grouped path "
+        "(ragged last group, two passes at m=2000): exact with repeated and clamped "
+        "candidates")
     # a 4.6 GB library; candidates past the 4 GiB byte offset
     l, d = 1_500_000, 3072
     lib = _u8(torch, gen, (l, d), dev)
@@ -375,15 +497,19 @@ def phase_c_k3(torch, gen, dev, card) -> dict:
     reached = int(torch.unique(cand).numel())
     nb = blocks.numel() + cand.numel() * 4 + reached * d + b * m * 4
     gathered = b * m * d
+    pairs = reuse(torch, cand, minhash=True)
     log(f"K3 B={b} m={m} D={d} L={l}: kernel {ms:.3f} ms ({gathered / ms / 1e9:.2f} TB/s "
-        f"of gathered rows), plain {plain_ms:.3f} ms; {reached} rows reached [{card}]")
+        f"of gathered rows), plain {plain_ms:.3f} ms; {reached} rows reached; reuse "
+        f"{pairs:.3f} pairs per fetched row in groups of 16 in min-hash order "
+        f"({reuse(torch, cand):.3f} in consecutive groups; random candidates) "
+        f"[{card}]")
     del lib, blocks, cand, got
     torch.cuda.empty_cache()
     # no single torch call gathers rows per query and reduces |x - t|
     return {"max_abs_err": err.max, "ms": ms, "plain_ms": plain_ms,
-            **bound(nb, 2.0 * gathered), "library_ms": None,
+            **bound(nb, 2.0 * gathered), **ceiling(nb, gathered, rate), "library_ms": None,
             "shape": f"B={b} m={m} D={d} L={l}, random candidates",
-            "gathered_gb": gathered / 1e9}
+            "gathered_gb": gathered / 1e9, "reuse_random": pairs}
 
 
 def phase_c_k4(torch, gen, dev, card, b=16384, nseg_big=512) -> dict:
@@ -943,6 +1069,7 @@ def phase_n(torch, gen, dev, card, t=32767, side=4096, t2=16384) -> dict:
     from emosaic_tpu_torch.ops import distance
     from emosaic_tpu_torch.ops._kernels import KERNELS
     from emosaic_tpu_torch.ops.analysis import source_blocks
+    from emosaic_tpu_torch.probes.k1_k3 import reuse
     from emosaic_tpu_torch.render.norepeat import render_nto1_no_repeat
 
     dim, k = FLAGSHIP_DIM, 512
@@ -989,11 +1116,17 @@ def phase_n(torch, gen, dev, card, t=32767, side=4096, t2=16384) -> dict:
     profile_render(torch, lambda: render_nto1_no_repeat(
         src, ts, dim, device=dev, stack=stack, log=lambda *a: None), card)
 
-    # the lists: the adaptive scorer against the independent two-level one
+    # the lists: the adaptive scorer against the independent two-level one;
+    # K3's own inputs in that run are kept for its timing below
     blocks = source_blocks(src, dim, device=dev)
     lib = distance.build_library(pal)
+    seen, l1_rows = [], distance.l1_rows
+    distance.l1_rows = lambda x_, c_, t_: seen.append((x_, c_, t_)) or l1_rows(x_, c_, t_)
     t0 = time.perf_counter()
-    da, ra = distance.l1_topk_adaptive(blocks, lib, k)
+    try:
+        da, ra = distance.l1_topk_adaptive(blocks, lib, k)
+    finally:
+        distance.l1_rows = l1_rows
     ad_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     dt, rt = distance.l1_topk_twolevel(blocks, lib, k)
@@ -1002,6 +1135,20 @@ def phase_n(torch, gen, dev, card, t=32767, side=4096, t2=16384) -> dict:
           "adaptive lists != two-level lists")
     log(f"N [{blocks.shape[0]}, {k}] lists: adaptive == two-level, bit for bit "
         f"(adaptive {ad_s:.3f} s, two-level {tl_s:.3f} s) [{card}]")
+    # K3 on the flagship's own candidate lists (the rescore's largest call)
+    xx, cc, tt = max(seen, key=lambda s_: s_[1].numel())
+    del seen
+    s = torch.arange(0, xx.shape[0], 16, device=dev)
+    got = distance.l1_rows(xx, cc, tt)
+    Err().add(torch, got[s], distance._l1_rows_ref(xx[s], cc[s], tt),
+              "K3 on the flagship's own lists (1/16 sample)")
+    lists_ms = cuda_ms(torch, lambda: distance.l1_rows(xx, cc, tt))
+    lists_reuse = reuse(torch, cc, minhash=True)
+    lists_shape = list(cc.shape)
+    log(f"N K3 on the flagship's own lists {lists_shape} (exact on a 1/16 sample): "
+        f"{lists_ms:.3f} ms; reuse {lists_reuse:.3f} pairs per fetched row in groups of 16 "
+        f"in min-hash order ({reuse(torch, cc):.3f} in consecutive groups) [{card}]")
+    del xx, cc, tt, got
     x = blocks[:4096].float()
     cdist_ms = cuda_ms(torch, lambda: torch.cdist(x, lib.float(), p=1), reps=2)
     log(f"N torch.cdist(p=1) {list(x.shape)} x {list(lib.shape)} f32: {cdist_ms:.1f} ms "
@@ -1053,7 +1200,9 @@ def phase_n(torch, gen, dev, card, t=32767, side=4096, t2=16384) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "wall_s": wall, "certified": sc["certified"],
             "lists_adaptive_s": ad_s, "lists_twolevel_s": tl_s, "worst_s": worst_s,
-            "cdist_ms": cdist_ms, "consume_device_s": dev_s, "consume_host_s": host_s}
+            "cdist_ms": cdist_ms, "consume_device_s": dev_s, "consume_host_s": host_s,
+            "k3_lists_ms": lists_ms, "k3_lists_reuse": lists_reuse,
+            "k3_lists_shape": lists_shape}
 
 
 # ---------------------------------------------------------------------------
@@ -1347,9 +1496,10 @@ def main() -> int:
         card = phase_a(torch)
         phase_b()
         log("== C. kernels against their plain versions on the card")
-        k1 = phase_c_k1(torch, gen, dev, card)
+        rate = vsad_rate(torch, dev, card)
+        k1 = phase_c_k1(torch, gen, dev, card, rate)
         k2 = phase_c_k2(torch, gen, dev, card)
-        k3 = phase_c_k3(torch, gen, dev, card)
+        k3 = phase_c_k3(torch, gen, dev, card, rate)
         k4 = phase_c_k4(torch, gen, dev, card)
         k5 = phase_c_k5(torch, gen, dev, card)
         k6, k7 = phase_c_k6_k7(torch, gen, dev, card)
@@ -1401,6 +1551,9 @@ def main() -> int:
     rows[1]["also_replaces"] = "emosaic_tpu/ops/composite.py:82"
     rows[2]["also_replaces"] = "tools/tpu_r19_flatdma.py:48"
     rows[2]["launches_h"] = launches_h["l1_rows"]
+    rows[2].update(ms_flagship_lists=n["k3_lists_ms"], reuse_flagship_lists=n["k3_lists_reuse"],
+                   shape_flagship_lists=n["k3_lists_shape"])
+    rows[0]["vabsdiff4_rate_measured"] = rows[2]["vabsdiff4_rate_measured"] = rate["measured"]
     rows[2]["flatdma_steps"] = lab["flatdma"]["steps"]
     seg = lab["seg8"]
     rows[3].update(ms_200k_chunk=seg["k4_ms"], plain_ms_200k_chunk=seg["plain_ms"],

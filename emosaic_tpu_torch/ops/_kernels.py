@@ -113,7 +113,7 @@ _I = ctypes.c_int
 L1_ARGMIN = CudaKernel(
     "l1_argmin",
     "emosaic_l1_argmin",
-    [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 )
 #: csrc/compose.cu (see ops/composite.py `compose_rows`)
 COMPOSE = CudaKernel(
@@ -125,7 +125,7 @@ COMPOSE = CudaKernel(
 L1_ROWS = CudaKernel(
     "l1_rows",
     "emosaic_l1_rows",
-    [_I, _P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_longlong, _I, _I, _P],
+    [_I, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_longlong, _I, _I, _I, _I, _P],
 )
 #: csrc/seg_topcap.cu (see ops/distance.py `seg_topcap`)
 SEG_TOPCAP = CudaKernel(

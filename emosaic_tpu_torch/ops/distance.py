@@ -79,9 +79,27 @@ DEVICE_LIB_BYTES_MAX = int(os.environ.get("EMOSAIC_DEVICE_LIB_BYTES", 16 << 30))
 #: K1 blocks per SM that fill the card; with fewer query tiles than
 #: SMs x this, K1 splits the library across blocks
 _BLOCKS_PER_SM = 8
+#: K1's tiles (`csrc/l1_argmin.cu`), (queries, library rows): the register
+#: path takes rows of at most `_K1_REG_WORDS` 4-byte words, the staged
+#: path the rest, padded to whole 16-byte vectors
+_K1_REG_WORDS = 16
+_K1_REG_TILE = (256, 256)
+_K1_STAGED_TILE = (128, 128)
 #: K3 blocks per SM that fill the card; with fewer queries than SMs x
-#: this, K3 splits each query's candidates across blocks
+#: this, K3's per-query path splits each query's candidates across blocks
 _ROWS_BLOCKS_PER_SM = 8
+#: K3's grouped path (`csrc/l1_rows.cu`): the shared memory a block may
+#: use (227 KB less room for its static arrays), the part its sort and
+#: sorted lists take (the kernel's SORT_BYTES), entries per sort, the
+#: largest group, and the least row width in 16-byte vectors that takes it
+#: (narrower rows take the per-query path)
+_K3_SMEM_BYTES = 226 * 1024
+_K3_SORT_BYTES = 96 * 1024
+_K3_ENTRIES = 16384
+_K3_GROUP_MAX = 64
+_K3_GROUPED_MIN_VEC = 32
+#: buckets of the grouped path's query order (the kernel's NBK)
+_K3_BUCKETS = 65536
 
 
 def flip_palettes(palettes: torch.Tensor) -> torch.Tensor:
@@ -206,21 +224,40 @@ def _pad_words(x: torch.Tensor, width: int, align: int = 4) -> torch.Tensor:
     return x
 
 
+def _k1_plan(b: int, l: int, d: int, sms: int) -> tuple[int, int, int, int]:
+    """K1's launch for B queries against L rows of D bytes on `sms` SMs:
+    (row width in 4-byte words after padding, query tiles, library splits,
+    library tiles per split). Rows of at most `_K1_REG_WORDS` words take
+    the register path and pad to whole words; wider rows take the staged
+    path and pad to whole 16-byte vectors. The library is split until the
+    grid holds SMs x `_BLOCKS_PER_SM` blocks, and every split is non-empty."""
+    dw = -(-d // 4)
+    reg = dw <= _K1_REG_WORDS
+    if not reg:
+        dw = -(-dw // 4) * 4
+    tq, tl = _K1_REG_TILE if reg else _K1_STAGED_TILE
+    qtiles = -(-b // tq)
+    ntiles = -(-l // tl)
+    nsplit = max(1, min(ntiles, 65535, -(-sms * _BLOCKS_PER_SM // max(1, qtiles))))
+    per = -(-ntiles // nsplit)
+    return dw, qtiles, -(-ntiles // per), per
+
+
 def _l1_argmin_cuda(
     blocks: torch.Tensor, lib: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     b, d = blocks.shape
     l = lib.shape[0]
-    d4 = -(-d // 4) * 4
-    q = _pad_words(blocks, d4)
-    t = _pad_words(lib, d4)
-    keys = torch.empty((b,), dtype=torch.int64, device=blocks.device)
     dist = torch.empty((b,), dtype=torch.int32, device=blocks.device)
     row = torch.empty((b,), dtype=torch.int32, device=blocks.device)
     if b == 0:
         return dist, row
-    stream = torch.cuda.current_stream(blocks.device).cuda_stream
     sms = torch.cuda.get_device_properties(blocks.device).multi_processor_count
+    dw, _, nsplit, per = _k1_plan(b, l, d, sms)
+    q = _pad_words(blocks, 4 * dw, 16)
+    t = _pad_words(lib, 4 * dw, 16)
+    keys = torch.empty((b,), dtype=torch.int64, device=blocks.device)
+    stream = torch.cuda.current_stream(blocks.device).cuda_stream
     L1_ARGMIN.launch(
         blocks.device.index,
         ctypes.c_void_p(q.data_ptr()),
@@ -230,8 +267,9 @@ def _l1_argmin_cuda(
         ctypes.c_void_p(row.data_ptr()),
         b,
         l,
-        d4 // 4,
-        sms * _BLOCKS_PER_SM,
+        dw,
+        nsplit,
+        per,
         ctypes.c_void_p(stream),
     )
     return dist, row
@@ -797,6 +835,24 @@ def _l1_rows_ref(
     return out
 
 
+def _k3_plan(m: int, nvec: int) -> tuple[int, int]:
+    """K3's path for m candidates per query and rows of `nvec` 16-byte
+    vectors: (group, log2 of the candidate positions per pass). group = 0
+    takes the per-query path (rows under `_K3_GROUPED_MIN_VEC` vectors, or
+    one query row that does not fit beside the sort). Otherwise the group
+    is the largest power of two of query rows that fits the shared memory
+    beside the sort, at most `_K3_GROUP_MAX`, and no larger than lets one
+    pass of `_K3_ENTRIES` entries cover each query's whole list; a pass
+    takes min(whole list, entries / group) positions, a power of two."""
+    room = (_K3_SMEM_BYTES - _K3_SORT_BYTES) // (16 * nvec)
+    if nvec < _K3_GROUPED_MIN_VEC or room < 1:
+        return 0, 0
+    m2 = 1 << max(0, m - 1).bit_length()  # the least power of two >= m
+    g = min(room, _K3_GROUP_MAX, max(1, _K3_ENTRIES // m2))
+    g = 1 << (g.bit_length() - 1)
+    return g, (min(_K3_ENTRIES // g, m2)).bit_length() - 1
+
+
 def _l1_rows_cuda(
     blocks: torch.Tensor, cand: torch.Tensor, lib: torch.Tensor
 ) -> torch.Tensor:
@@ -810,6 +866,10 @@ def _l1_rows_cuda(
     out = torch.empty((b, m), dtype=torch.int32, device=blocks.device)
     if b == 0 or m == 0:
         return out
+    group, mc_log2 = _k3_plan(m, d16 // 16)
+    # the grouped path's query order: bucket counts, buckets, permutation
+    scratch = torch.empty((_K3_BUCKETS + 2 * b) if group else 0, dtype=torch.int32,
+                          device=blocks.device)
     stream = torch.cuda.current_stream(blocks.device).cuda_stream
     sms = torch.cuda.get_device_properties(blocks.device).multi_processor_count
     L1_ROWS.launch(
@@ -818,10 +878,13 @@ def _l1_rows_cuda(
         ctypes.c_void_p(c.data_ptr()),
         ctypes.c_void_p(t.data_ptr()),
         ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_void_p(scratch.data_ptr() if group else None),
         b,
         m,
         l,
         d16 // 16,
+        group,
+        mc_log2,
         sms * _ROWS_BLOCKS_PER_SM,
         ctypes.c_void_p(stream),
     )
@@ -833,7 +896,9 @@ def l1_rows(blocks: torch.Tensor, cand: torch.Tensor, lib: torch.Tensor) -> torc
 
     blocks [B, D] u8, cand [B, m] int32, lib [L, D] u8 (L >= 1), all on one
     device. A CUDA tensor goes to K3 (`csrc/l1_rows.cu`) for every D from 3
-    to 49152 and libraries past 4 GiB; a CPU tensor to `_l1_rows_ref`.
+    to 49152 and libraries past 4 GiB (rows of 512 bytes and more through
+    its grouped path, which fetches each distinct row once per group of
+    queries; `_k3_plan`); a CPU tensor to `_l1_rows_ref`.
     Returns int32 [B, m] on that device.
     """
     if blocks.dtype != torch.uint8 or lib.dtype != torch.uint8:
@@ -1212,8 +1277,9 @@ def l1_topk_streamed(blocks, lib, k: int, *, bank_rows: int | None = None,
 # above that the card's sum order may differ from the CPU's. The selection
 # is exact, lowest row first among equal scores (a packed key over an
 # order-preserving int32 image of the score). The JAX package's
-# approx_min_k returns the same set on the CPU but orders ties across its
-# cut otherwise, so the parity tests use data with no tie there.
+# approx_min_k returns the same scores on the CPU, but which of several
+# equal scores at its cut it keeps follows no rule: an accepted divergence
+# (README), pinned by the tied-data tests of tests/test_torch_hybrid.py.
 # ---------------------------------------------------------------------------
 
 

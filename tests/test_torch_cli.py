@@ -220,3 +220,20 @@ def test_distributed_env_raises(scene, monkeypatch):
     monkeypatch.setenv("EMOSAIC_DISTRIBUTED", "1")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["-s", "16", "source.png", "mosaic", "tiles", "--device", "cpu"])
+
+
+def test_packaging_names_the_port():
+    """`pyproject.toml`: the `torch` extra and the port's console script,
+    beside the JAX package's dependencies and scripts."""
+    import importlib
+    import tomllib
+
+    proj = tomllib.loads((Path(__file__).resolve().parents[1] / "pyproject.toml")
+                         .read_text())["project"]
+    assert proj["dependencies"] == ["jax", "numpy", "Pillow"]
+    assert proj["optional-dependencies"]["torch"] == ["torch", "numpy", "Pillow"]
+    target = proj["scripts"]["emosaic-tpu-torch"]
+    assert target == "emosaic_tpu_torch.cli:main"
+    mod, fn = target.split(":")
+    assert getattr(importlib.import_module(mod), fn) is cli.main
+    assert proj["scripts"]["emosaic-tpu"] == "emosaic_tpu.cli:main"

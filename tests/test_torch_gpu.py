@@ -61,6 +61,117 @@ def test_k1_tie_storm_lowest_row(cuda):
     assert bool((dist == 0).all()) and torch.equal(row, pick.to(torch.int32))
 
 
+@pytest.mark.parametrize("d", [12, 48, 200])
+def test_k1_ties_across_lanes_warps_and_splits(cuda, d):
+    """Equal rows in one tile (two warps), in other tiles and in other
+    library splits, listed out of order: the lowest of them wins, for exact
+    copies and for noisy queries near them."""
+    rng = np.random.default_rng(d)
+    lib = rng.integers(0, 256, size=(9000, d), dtype=np.uint8)
+    target = rng.integers(0, 256, size=d, dtype=np.uint8)
+    lib[[5000, 41, 8999, 257, 40, 3000]] = target
+    near = np.clip(target.astype(int) + rng.integers(-2, 3, size=(6, d)), 0, 255)
+    blocks = np.concatenate([np.repeat(target[None], 5, 0), near.astype(np.uint8)])
+    x, t = torch.from_numpy(blocks).to(cuda), torch.from_numpy(lib).to(cuda)
+    dist, row = distance.l1_argmin(x, t)
+    want = distance.l1_argmin_ref(x, t)
+    torch.cuda.synchronize()
+    assert bool((dist[:5] == 0).all()) and bool((row[:5] == 40).all())
+    assert torch.equal(dist, want[0]) and torch.equal(row, want[1])
+
+
+@pytest.mark.parametrize("d", [60, 64, 65, 68, 75])
+def test_k1_register_path_boundary(cuda, d):
+    """D = 64 is the register path's widest row (16 words); 65 and up take
+    the staged path, padded to 16-byte vectors."""
+    rng = np.random.default_rng(d)
+    blocks, lib = _u8(rng, (300, d), cuda), _u8(rng, (3000, d), cuda)
+    got = distance.l1_argmin(blocks, lib)
+    want = distance.l1_argmin_ref(blocks, lib)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("b,l,d", [(7, 100000, 48), (3, 20000, 300), (1000, 257, 12)])
+def test_k1_library_splits(cuda, b, l, d):
+    """Few queries against many rows split the library across blocks."""
+    rng = np.random.default_rng(b + l)
+    blocks, lib = _u8(rng, (b, d), cuda), _u8(rng, (l, d), cuda)
+    got = distance.l1_argmin(blocks, lib)
+    want = distance.l1_argmin_ref(blocks, lib)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_k1_widest_rows(cuda):
+    """D = 65800: distances past 2^24 (0 against 255: 16779000, tied over the
+    whole library), and one row of the ragged last tile one lower wins."""
+    d = 65800
+    blocks = torch.zeros((3, d), dtype=torch.uint8, device=cuda)
+    lib = torch.full((300, d), 255, dtype=torch.uint8, device=cuda)
+    dist, row = distance.l1_argmin(blocks, lib)
+    torch.cuda.synchronize()
+    assert bool((dist == 255 * d).all()) and bool((row == 0).all())
+    lib[290, 7] = 254
+    dist, row = distance.l1_argmin(blocks, lib)
+    torch.cuda.synchronize()
+    assert bool((dist == 255 * d - 1).all()) and bool((row == 290).all())
+
+
+def _k3_case(rng, b, l, d, m, dev, cand):
+    blocks, lib = _u8(rng, (b, d), dev), _u8(rng, (l, d), dev)
+    c = torch.from_numpy(np.ascontiguousarray(cand, dtype=np.int32)).to(dev)
+    before = L1_ROWS.launches
+    got = distance.l1_rows(blocks, c, lib)
+    torch.cuda.synchronize()
+    assert L1_ROWS.launches == before + 1
+    assert torch.equal(got, distance._l1_rows_ref(blocks, c, lib))
+
+
+@pytest.mark.parametrize(
+    "b,l,d,m",
+    [(5, 300, 3, 64), (37, 500, 12, 100), (40, 1000, 48, 64), (37, 900, 768, 1024),
+     (33, 2000, 3072, 1024), (17, 300, 3072, 1), (40, 3000, 3072, 2000), (3, 64, 49152, 7),
+     (9, 100, 49152, 300)],
+)
+def test_k3_unsorted_repeated_clamped(cuda, b, l, d, m):
+    """Both paths (`_k3_plan`): candidates in no order, repeated within and
+    across queries, and out of range (clamped); b not a multiple of the
+    group, so the last group is ragged; m past one pass of the sort."""
+    rng = np.random.default_rng(b * 7 + d + m)
+    cand = rng.integers(-3, l + 3, size=(b, m))
+    cand[:, 1::5] = cand[:, :1]
+    cand[1::2, : m // 2] = cand[0, : m // 2]
+    _k3_case(rng, b, l, d, m, cuda, cand)
+
+
+@pytest.mark.parametrize("d", [3, 48, 768, 3072])
+def test_k3_no_overlap_and_full_overlap(cuda, d):
+    """Groups whose queries list disjoint rows, and groups whose queries all
+    list the same rows (each in its own order)."""
+    rng = np.random.default_rng(d)
+    b, m = 40, 128
+    disjoint = np.arange(b * m).reshape(b, m)
+    _k3_case(rng, b, b * m, d, m, cuda, disjoint)
+    rows = rng.choice(5000, m, replace=False)
+    same = np.stack([rows[rng.permutation(m)] for _ in range(b)])
+    _k3_case(rng, b, 5000, d, m, cuda, same)
+
+
+def test_k3_past_4gib_grouped(cuda):
+    """A 4.6 GB library, candidates past the 4 GiB byte offset, the grouped
+    path."""
+    rng = np.random.default_rng(46)
+    l, d = 1_500_000, 3072
+    lib = torch.randint(0, 256, (l, d), dtype=torch.uint8, device=cuda)
+    blocks = _u8(rng, (20, d), cuda)
+    first = (1 << 32) // d + 1
+    cand = torch.from_numpy(rng.integers(first, l, size=(20, 64)).astype(np.int32)).to(cuda)
+    cand[:, 0] = l - 1
+    assert distance._k3_plan(64, d // 16)[0] > 0
+    assert torch.equal(distance.l1_rows(blocks, cand, lib), distance._l1_rows_ref(blocks, cand, lib))
+
+
 @pytest.mark.parametrize(
     "t,ts,nby,nbx", [(5, 8, 3, 128), (9, 12, 2, 37), (4, 20, 2, 3), (6, 16, 1, 200)]
 )
