@@ -7,13 +7,17 @@ Run from the root of a checkout. Phases, each printing its own lines:
 
   A  environment: torch/CUDA versions, the card's name and power limit,
      nvcc, and a GPU, or it stops;
-  B  build: the eight CUDA kernels from the seven sources of
+  B  build: the nine CUDA kernels from the eight sources of
      `emosaic_tpu_torch/csrc/` (one nvcc per source, started together) and
      the native C++ greedy engine;
   C  each kernel against its plain torch version on the card, exactly:
-     K1 (L1 argmin), K2 (composite), K3 (shortlist rescore) and K4
-     (segment top-cap) at test and main-path shapes, K3 and K4 also past
-     4 GiB; K1 also on tie storms, at D = 49152 and 65800 and across D
+     K1 (L1 argmin), K2 (composite), K3 (shortlist rescore), K4
+     (segment top-cap, caps 1 to 128) and K9 (the fused coarse pass: keys
+     and s_min at nseg 1..1563, caps 1, 8, 16, every dout the plan gives,
+     6..1536, on clustered and duplicated data; timed at the flagship
+     shape against cdist + K4, with the FP32 lanes' rate, derived and
+     measured, as its ceiling) at test and main-path shapes, K3 and K4
+     also past 4 GiB; K1 also on tie storms, at D = 49152 and 65800 and across D
      (12..3072 at B=4096, L=200000, in T byte pairs/s), K3 on both of its
      paths with ragged groups; the CUDA cores' VABSDIFF4 rate, derived and
      measured, and its share of K1's code (`cuobjdump -sass`); the
@@ -30,16 +34,17 @@ Run from the root of a checkout. Phases, each printing its own lines:
      0.3 tint into a PNG;
   N  the no-repeat main path at the flagship size through
      `render_nto1_no_repeat`: 32767 clustered synthetic tiles, mode 32 on
-     a 4096^2 source (the adaptive scorer: K4 in its coarse pass, K3 in
+     a 4096^2 source (the adaptive scorer: K9 in its coarse pass, K3 in
      its rescore; the native greedy engine with device refills; K2), its
      candidate lists against the two-level scorer's, K3 timed on those
      lists' own rescore inputs with their reuse, the worst case
      (uniform data) through `l1_topk`, and a full-library-consumption
      assignment with device refills against host scans;
   L  the lab probes, with the composite lab kernels' plain versions made
-     to raise: `probes/seg8.py` (K4 in the coarse pass at the TPU tool's
-     200k shape, bit-equal to the plain selection, with times),
-     `probes/flatdma.py` (peak device bytes of K3, the coarse pass, the
+     to raise: `probes/seg8.py` (`seg_topk` on K4, and the coarse pass at
+     the TPU tool's 200k shape on K9 and on the cdist stripe + K4, both
+     bit-equal to the plain selection, with times), `probes/flatdma.py`
+     (peak device bytes of K3, the coarse pass (K9, no stripe), the
      rescore and the whole scorer at a 2M-row library; fails on a
      library-sized temporary), `probes/r3_composite.py` (C0..C10: K2, K5,
      K6 and K7 at the r3 tools' band, each bit-equal to K2) and
@@ -55,8 +60,9 @@ Run from the root of a checkout. Phases, each printing its own lines:
      1 and 4, then `--no-repeat`, `--no-repeat --greedy` and
      `--randomize 10` at mode 16, `--matcher hybrid` and `--metric l2` at
      mode 4, and `-m random` on a 256x192 photo;
-  F  the launch counts of each main path's run (D: K1 and K2; N: K3, K4
-     and K2; H: K3 and K2; L: K5, K6, K7 and K8), which must be > 0.
+  F  the launch counts of each main path's run (D: K1 and K2; N: K3, K9
+     and K2; H: K3 and K2; L: K4, K9, K5, K6, K7 and K8), which must be
+     > 0.
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed. The last lines are one JSON object listing every kernel (with
@@ -68,12 +74,14 @@ input read once, each output written once; for gathers, the rows this
 run's indices reach) over 3.35 TB/s, and its integer operations (an
 absolute difference and an add per byte pair; none counted for K4's
 selection) over 1979 TOP/s, the H100 SXM's published HBM rate and int8
-peak at its 700 W limit. K1 and K3 also carry `ceiling_ms`: exact L1 on
-u8 has no tensor-core form at a useful cost, so the least time their
+peak at its 700 W limit. K1, K3 and K9 also carry `ceiling_ms`: exact L1
+has no tensor-core form at a useful cost, so the least time their
 CUDA-core work can take is the byte pairs over the VABSDIFF4 rate (SMs x
 64 lanes x 4 byte pairs x the maximum SM clock, or what a pure VABSDIFF4
-kernel reaches on the card, whichever is larger), or the bytes over the
-HBM rate if that is longer (`ceiling_by` states the derivation).
+kernel reaches on the card, whichever is larger), for K9 the coordinate
+pairs over the FP32 lanes' rate (two FADDs a pair: SMs x 64 x the
+clock, or a pure FADD kernel's rate), or the bytes over the HBM rate if
+that is longer (`ceiling_by` states the derivation).
 """
 
 from __future__ import annotations
@@ -172,6 +180,43 @@ def vsad_rate(torch, dev, card) -> dict:
     return {"rate": max(derived, measured), "derived": derived, "measured": measured,
             "how": f"{sms} SMs x 64 VABSDIFF4 lanes x 4 byte pairs x {mhz:.0f} MHz = "
                    f"{derived / 1e12:.2f} T byte pairs/s; a pure VABSDIFF4 kernel "
+                   f"measured {measured / 1e12:.2f}; the larger"}
+
+
+def fadd_rate(torch, dev, card) -> dict:
+    """The FP32 lanes' rate of K9's inner step, a (row, position,
+    coordinate) pair = an FADD of the difference and an FADD of its |.|
+    into the sum: derived as SMs x 128 lanes / 2 FADDs x the card's maximum
+    SM clock, and measured with the pure FADD / FADD.abs kernel of
+    `csrc/coarse_topcap.cu` (16 chains a thread, 8 blocks of 256 threads per
+    SM). K9's ceiling uses the larger of the two."""
+    import ctypes
+
+    from emosaic_tpu_torch.ops._kernels import COARSE_TOPCAP
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    derived = sms * 64 * mhz * 1e6
+    fn = ctypes.CDLL(str(COARSE_TOPCAP.library)).emosaic_fadd_rate
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.zeros(1, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    blocks, iters = sms * 8, 4096
+
+    def run():
+        check(fn(dev.index, out.data_ptr(), blocks, iters, stream) == 0, "fadd_rate launch")
+
+    ms = cuda_ms(torch, run, reps=3)
+    measured = blocks * 256 * 32 * iters / (ms * 1e-3)
+    log(f"FP32 rate: derived {sms} SMs x 128 lanes / 2 FADDs x {mhz:.0f} MHz = "
+        f"{derived / 1e12:.2f} T pairs/s; a pure FADD/FADD.abs kernel reached "
+        f"{measured / 1e12:.2f} [{card}]")
+    return {"rate": max(derived, measured), "derived": derived, "measured": measured,
+            "how": f"{sms} SMs x 128 FP32 lanes / 2 FADDs x {mhz:.0f} MHz = "
+                   f"{derived / 1e12:.2f} T pairs/s; a pure FADD/FADD.abs kernel "
                    f"measured {measured / 1e12:.2f}; the larger"}
 
 
@@ -534,12 +579,12 @@ def phase_c_k4(torch, gen, dev, card, b=16384, nseg_big=512) -> dict:
     nsegs = (1, 7, 512, 1563, 15625)
     for nseg in nsegs:
         r = max(2, min(96, (1 << 22) // (nseg * 128)))
-        for cap in (8, 16):
+        for cap in (1, 8, 16, 128):
             for hi in (40, 2**30):  # tie-heavy, and values up to 2^30 - 1
                 dist, cols = stripe(r, nseg, hi)
                 # the last 37 positions' rows are padding: _TL_BIG = 2^30
                 one(dist, cols, cap, nseg * 128 - 37, f"K4 r={r} nseg={nseg} cap={cap}")
-    log(f"K4 nseg {nsegs} x cap 8, 16 x values < 40 (ties) and < 2^30, full-tie "
+    log(f"K4 nseg {nsegs} x cap 1, 8, 16, 128 x values < 40 (ties) and < 2^30, full-tie "
         "segments, _TL_BIG-masked columns: exact")
     rng = np.random.default_rng(SEED)
     seg = rng.integers(0, 50, size=(32, 130, 128)).astype(np.int32)
@@ -578,6 +623,103 @@ def phase_c_k4(torch, gen, dev, card, b=16384, nseg_big=512) -> dict:
             "library_ms": lib_ms,
             "shape": f"B={b} lp={nseg * 128} nseg={nseg} cap={cap} (the flagship coarse "
                      "pass's whole stripe)"}
+
+
+def phase_c_k9(torch, gen, dev, card, frate, b=16384, nseg_flag=512) -> dict:
+    """K9 against its plain version `_coarse_topcap_ref` (keys and s_min
+    exactly) at nseg 1, 7, 512 and 1563 with a ragged real_l, caps 1, 8 and
+    16, and each dout the plan gives (modes 4/8, 16, 6, 32, 64, 128), on
+    clustered projected data and on data whose rows repeat exactly across
+    segments; then timed at the flagship coarse pass's shape against
+    cdist + K4 and the plain version."""
+    from emosaic_tpu_torch.ops import distance
+
+    err = Err()
+
+    def case(nseg, dout, g, kind, rows):
+        """(xp [rows, dout] i32, coarse library) in projected units (group
+        sums of g cells, 0..255g): 40 centres +-2g, or ("dupes") 50 rows
+        repeated over the whole library."""
+        lp = nseg * 128
+        top = 255 * g
+        cen = torch.randint(0, top + 1, (40 if kind == "clustered" else 50, dout),
+                            device=dev, generator=gen)
+        pick = torch.randint(0, cen.shape[0], (lp,), device=dev, generator=gen)
+        rows_lib = cen[pick]
+        if kind == "clustered":
+            rows_lib = rows_lib + torch.randint(-2 * g, 2 * g + 1, (lp, dout), device=dev,
+                                                generator=gen)
+        rows_lib = rows_lib.clamp(0, top).to(torch.int32)
+        qpick = torch.randint(0, lp, (rows,), device=dev, generator=gen)
+        xp = (rows_lib[qpick] + torch.randint(-g, g + 1, (rows, dout), device=dev,
+                                              generator=gen)).clamp(0, top).to(torch.int32)
+        pos = torch.arange(lp, device=dev)
+        cols = ((pos % 128) * nseg + pos // 128).to(torch.int32)
+        # position s*128 + k holds library row cols = k*nseg + s
+        proj = rows_lib.view(128, nseg, dout).permute(1, 2, 0).float().contiguous()
+        return xp, (proj, cols, lp - 37)
+
+    def one(xp, cl, cap, what):
+        nseg = cl[0].shape[0]
+        keys = torch.empty((xp.shape[0], nseg * cap), dtype=torch.int64, device=dev)
+        s_min = torch.empty((xp.shape[0],), dtype=torch.int32, device=dev)
+        distance.coarse_topcap(xp, cl, cap, keys, s_min)
+        wk, ws = distance._coarse_topcap_ref(xp, cl[0], cl[1], cap, cl[2])
+        err.add(torch, keys, wk, f"{what} keys")
+        err.add(torch, s_min, ws, f"{what} s_min")
+
+    douts = ((6, 8), (24, 32), (27, 4), (96, 32), (384, 32), (1536, 32))  # (dout, g)
+    nsegs = (1, 7, 512, 1563)
+    for dout, g in douts:
+        for nseg in nsegs:
+            rows = 300 if nseg * dout < 200000 else 133
+            for kind in ("clustered", "dupes"):
+                xp, cl = case(nseg, dout, g, kind, rows)
+                for cap in (1, 8, 16):
+                    one(xp, cl, cap, f"K9 nseg={nseg} dout={dout} cap={cap} {kind}")
+                del xp, cl
+    torch.cuda.empty_cache()
+    log(f"K9 dout {[d_ for d_, _ in douts]} x nseg {nsegs} (real_l = lp - 37) x cap 1, 8, 16 "
+        "x clustered and cross-segment duplicates: keys and s_min equal to the plain version")
+
+    # the flagship coarse pass: B=16384 projected blocks (dout 96) against
+    # 512 segments, cap 16, in one call
+    cap, dout = 16, 96
+    xp, cl = case(nseg_flag, dout, 32, "clustered", b)
+    proj, cols, real_l = cl
+    lp = nseg_flag * 128
+    keys = torch.empty((b, nseg_flag * cap), dtype=torch.int64, device=dev)
+    s_min = torch.empty((b,), dtype=torch.int32, device=dev)
+    one(xp, cl, cap, "K9 flagship shape")
+    ms = cuda_ms(torch, lambda: distance.coarse_topcap(xp, cl, cap, keys, s_min))
+    rows_lib = distance._ad_rows(proj)
+
+    def stripe_k4():
+        return distance.seg_topcap(distance.l1_block(xp, rows_lib), cols, cap, real_l)
+
+    check(torch.equal(stripe_k4(), keys), "cdist + K4 != K9 at the flagship shape")
+    pair_ms = cuda_ms(torch, stripe_k4, reps=2)
+    stripe_ms = cuda_ms(torch, lambda: distance.l1_block(xp, rows_lib), reps=2)
+    plain_ms = cuda_ms(torch, lambda: distance._coarse_topcap_ref(xp, proj, cols, cap, real_l),
+                       reps=1)
+    pairs = b * lp * dout
+    # read the projected rows, the library and the cols once; write keys and s_min
+    nb = xp.numel() * 4 + proj.numel() * 4 + cols.numel() * 4 + keys.numel() * 8 + b * 4
+    res = {**bound(nb, 2.0 * pairs), **ceiling(nb, pairs, frate)}
+    log(f"K9 B={b} lp={lp} dout={dout} cap={cap}: kernel {ms:.3f} ms "
+        f"({pairs / ms / 1e9:.2f} T pairs/s), bound {res['bound_ms']:.3f} ms "
+        f"({res['bound_by']}), FP32 ceiling {res['ceiling_ms']:.3f} ms; cdist + K4 "
+        f"{pair_ms:.3f} ms (the cdist stripe alone {stripe_ms:.3f} ms); plain "
+        f"{plain_ms:.3f} ms [{card}]")
+    del xp, cl, proj, cols, keys, s_min, rows_lib
+    torch.cuda.empty_cache()
+    # no single torch call computes the fused function; library_ms is the
+    # cdist stripe it replaces
+    return {"max_abs_err": err.max, "ms": ms, "plain_ms": plain_ms, **res,
+            "library_ms": stripe_ms, "cdist_k4_ms": pair_ms,
+            "fp32_rate_measured": frate["measured"],
+            "shape": f"B={b} lp={lp} nseg={nseg_flag} dout={dout} cap={cap} (the flagship "
+                     "coarse pass in one call)"}
 
 
 def phase_c_k5(torch, gen, dev, card) -> dict:
@@ -747,7 +889,8 @@ def _no_fallback(lab: bool = False):
                  ("floor_write_ref", "compose_rows_bulk_ref", "band_transpose_ref")]
     else:
         names = [(distance, "l1_argmin_ref"), (composite, "compose_rows_ref"),
-                 (distance, "_l1_rows_ref"), (distance, "_seg_topcap_ref")]
+                 (distance, "_l1_rows_ref"), (distance, "_seg_topcap_ref"),
+                 (distance, "_coarse_topcap_ref")]
 
     @contextlib.contextmanager
     def ctx():
@@ -817,7 +960,7 @@ def phase_c_no_fallback(torch, gen, dev) -> None:
     check(res.info["scoring"]["route"] == "adaptive", f"route {res.info['scoring']}")
     check(np.array_equal(res.image, cpu.image), "no-repeat no-fallback run != CPU run")
     log("no fallback: render_nto1 (mode 4, composite), the dedup route and the "
-        "adaptive no-repeat render (K4, K3) ran with every plain version raising; "
+        "adaptive no-repeat render (K9, K3) ran with every plain version raising; "
         "equal to the CPU runs")
 
 
@@ -1211,7 +1354,7 @@ def phase_n(torch, gen, dev, card, t=32767, side=4096, t2=16384) -> dict:
 
 
 def phase_l(torch, dev, card) -> dict:
-    """The lab probes: K4 in the coarse pass at the 200k shape, the
+    """The lab probes: K4 and K9 in the coarse pass at the 200k shape, the
     device-memory accounting of the scorer at a 2M-row library, and the
     composite lab kernels K5 to K8 at the TPU tools' bands, with their
     plain versions raising; returns the probes' results and the launches
@@ -1501,6 +1644,7 @@ def main() -> int:
         k2 = phase_c_k2(torch, gen, dev, card)
         k3 = phase_c_k3(torch, gen, dev, card, rate)
         k4 = phase_c_k4(torch, gen, dev, card)
+        k9 = phase_c_k9(torch, gen, dev, card, fadd_rate(torch, dev, card))
         k5 = phase_c_k5(torch, gen, dev, card)
         k6, k7 = phase_c_k6_k7(torch, gen, dev, card)
         k8 = phase_c_k8(torch, gen, dev, card)
@@ -1522,9 +1666,10 @@ def main() -> int:
         phase_e(card)
         log("== F. counters")
         for path, counts, names in [("D", launches_d, ("l1_argmin", "compose")),
-                                    ("N", launches_n, ("l1_rows", "seg_topcap", "compose")),
+                                    ("N", launches_n, ("l1_rows", "coarse_topcap", "compose")),
                                     ("H", launches_h, ("l1_rows", "compose")),
-                                    ("L", launches_l, ("floor_write", "compose_bulk",
+                                    ("L", launches_l, ("seg_topcap", "coarse_topcap",
+                                                       "floor_write", "compose_bulk",
                                                        "compose_bulk2", "band_transpose"))]:
             for name in names:
                 log(f"{name}: {counts[name]} launches in {path}")
@@ -1537,11 +1682,12 @@ def main() -> int:
         (KERNELS[0], k1, "emosaic_tpu/ops/distance.py:190", launches_d),
         (KERNELS[1], k2, "emosaic_tpu/ops/composite.py:119", launches_d),
         (KERNELS[2], k3, "emosaic_tpu/ops/distance.py:1535", launches_n),
-        (KERNELS[3], k4, "tools/tpu_r14_seg8.py:62", launches_n),
+        (KERNELS[3], k4, "tools/tpu_r14_seg8.py:62", launches_l),
         (KERNELS[4], k5, "tools/tpu_r3_experiments.py:171", launches_l),
         (KERNELS[5], k6, "tools/tpu_r3_experiments2.py:188", launches_l),
         (KERNELS[6], k7, "tools/tpu_r3_experiments3.py:67", launches_l),
         (KERNELS[7], k8, "tools/tpu_bench_composite_variants.py:43", launches_l),
+        (KERNELS[8], k9, "tools/tpu_r14_seg8.py:62", launches_n),
     ]:
         rows.append({
             "name": k.name, "route": "cuda",
@@ -1559,8 +1705,12 @@ def main() -> int:
     rows[3].update(ms_200k_chunk=seg["k4_ms"], plain_ms_200k_chunk=seg["plain_ms"],
                    library_ms_200k_chunk=seg["library_ms"],
                    shape_200k_chunk=f"[{seg['rows']}, {seg['lp']}] cap {seg['cap']}",
-                   coarse_k4_s_200k=seg["coarse_k4_s"],
-                   coarse_plain_s_200k=seg["coarse_plain_s"])
+                   launches_n=launches_n["seg_topcap"])
+    rows[8].update(coarse_k9_s_200k=seg["coarse_k9_s"],
+                   coarse_cdist_k4_s_200k=seg["coarse_cdist_k4_s"],
+                   coarse_plain_s_200k=seg["coarse_plain_s"], launches_l=launches_l["coarse_topcap"],
+                   also_replaces="emosaic_tpu/ops/distance.py:1422 (_ad_coarse_core_jit, "
+                                 "XLA-fused stripe + lax.top_k, no Pallas kernel)")
     r3, cv = lab["r3"]["ms"], lab["variants"]["ms"]
     rows[5]["also_replaces"] = "tools/tpu_r3_experiments3.py:102"
     rows[4].update(ms_probe_c5=r3["C5"], fill_ms_probe_c5=r3["C5_fill"])

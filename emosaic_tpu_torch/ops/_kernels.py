@@ -61,14 +61,12 @@ class CudaKernel:
         return BUILD_DIR / f"lib{self.source_name}.so"
 
     def build(self, force: bool = False) -> float:
-        """Compile the library if it is missing or older than its source;
-        returns the seconds spent compiling (0.0 when up to date)."""
+        """Compile the library if it is missing or older than its source or
+        a header under `csrc/`; returns the seconds spent compiling (0.0
+        when up to date)."""
         lib = self.library
-        if (
-            not force
-            and lib.exists()
-            and lib.stat().st_mtime >= self.source.stat().st_mtime
-        ):
+        newest = max(p.stat().st_mtime for p in (self.source, *CSRC.glob("*.cuh")))
+        if not force and lib.exists() and lib.stat().st_mtime >= newest:
             return 0.0
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
@@ -131,7 +129,8 @@ L1_ROWS = CudaKernel(
 SEG_TOPCAP = CudaKernel(
     "seg_topcap",
     "emosaic_seg_topcap",
-    [_I, _P, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_longlong, _I, _I, _P],
+    [_I, _P, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_longlong, _I, ctypes.c_longlong,
+     _I, _P],
 )
 #: csrc/floor_write.cu (see ops/composite_lab.py `floor_write`)
 FLOOR_WRITE = CudaKernel(
@@ -159,8 +158,15 @@ BAND_TRANSPOSE = CudaKernel(
     "emosaic_band_transpose",
     [_I, _P, _P, _I, _I, _I, _I, _P],
 )
+#: csrc/coarse_topcap.cu (see ops/distance.py `coarse_topcap`)
+COARSE_TOPCAP = CudaKernel(
+    "coarse_topcap",
+    "emosaic_coarse_topcap",
+    [_I, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _I,
+     ctypes.c_longlong, _I, ctypes.c_longlong, _I, _P],
+)
 KERNELS = (L1_ARGMIN, COMPOSE, L1_ROWS, SEG_TOPCAP, FLOOR_WRITE, COMPOSE_BULK,
-           COMPOSE_BULK2, BAND_TRANSPOSE)
+           COMPOSE_BULK2, BAND_TRANSPOSE, COARSE_TOPCAP)
 
 
 def build_all(kernels=KERNELS, force: bool = False) -> dict:

@@ -14,9 +14,13 @@ The torch counterpart of `emosaic_tpu/ops/distance.py`.
   no-repeat candidate lists (rendering.rs:307-321). The dense distance
   stripes come from `l1_block`; the adaptive scorer's shortlist rescore is
   the hand-written kernel K3 `csrc/l1_rows.cu` (`l1_rows`), with
-  `_l1_rows_ref` its plain version for CPU tensors; its coarse pass keeps
-  each segment's least keys through the kernel K4 `csrc/seg_topcap.cu`
-  (`seg_topcap`), with `_seg_topcap_ref` its plain version.
+  `_l1_rows_ref` its plain version for CPU tensors; its coarse pass
+  scores the projected library and keeps each segment's least keys in one
+  kernel, K9 `csrc/coarse_topcap.cu` (`coarse_topcap`), with
+  `_coarse_topcap_ref` (`l1_block`, then `_seg_topcap_ref`) its plain
+  version. K4 `csrc/seg_topcap.cu` (`seg_topcap`, plain version
+  `_seg_topcap_ref`) selects from a given stripe (`seg_topk`); K4 and K9
+  share one selection routine (`csrc/seg_select.cuh`).
 - `l1_topk_hybrid`, `l1_argmin_hybrid` (`--matcher hybrid`) and
   `l2_argmin` (`--metric l2`): the approximate squared-L2 prefilter with
   an exact-L1 rescore on K3, and the squared-L2 argmin.
@@ -61,15 +65,15 @@ import time
 import numpy as np
 import torch
 
-from emosaic_tpu_torch.ops._kernels import L1_ARGMIN, L1_ROWS, SEG_TOPCAP
+from emosaic_tpu_torch.ops._kernels import COARSE_TOPCAP, L1_ARGMIN, L1_ROWS, SEG_TOPCAP
 
 I32_MAX = 2**31 - 1
 _MASK32 = 0xFFFFFFFF
 
 #: device-resident library budget (u8 bytes of [L, D]). Re-derived for the
 #: H100's 80 GB: the adaptive scorer holds the library, its projected
-#: int32 copy and that copy's segment-major permutation (at most 3x the
-#: library at the smallest group g = 4), the 2 GB survivor lists and a few
+#: f32 copy in segment-major order (at most 1x the library at the smallest
+#: group g = 4), the 2 GB survivor lists and a few
 #: GB of stripe workspace, and the streamed scorer's prefetch holds two
 #: half-budget banks; 16 GB leaves that inside 80 GB. Larger libraries
 #: stream in banks (`l1_topk_streamed`). EMOSAIC_DEVICE_LIB_BYTES
@@ -670,34 +674,76 @@ def _pad_lib(lib: torch.Tensor, lp: int, dev) -> torch.Tensor:
 
 
 def _ad_coarse_lib(lib_pad: torch.Tensor, d: int, g: int, chan: bool, real_l: int):
-    """The projected library in segment-major order: position s*w + k holds
-    row k*nseg + s (w = 128 columns per segment), so a coarse stripe comes
-    out segment by segment. Returns (proj [lp, dout] i32, cols [lp] i32,
-    the library row of each position, real_l: positions whose row is at
-    least real_l are padding)."""
+    """The projected library in the layout K9 reads: f32 [nseg, dout, 128].
+    Segment s holds the library rows k*nseg + s (k = 0..127; strided
+    segments spread a run of similar tiles in discovery order over many
+    segments), coordinate-major: proj[s, c, k] is coordinate c of row
+    k*nseg + s. The group sums are integers below 2^24, exact in f32.
+    Returns (proj, cols [lp] i32, the library row of position s*128 + k,
+    real_l: positions whose row is at least real_l are padding)."""
     lp = lib_pad.shape[0]
     nseg = lp // _TL_SEG
-    w = lp // nseg
     dev = lib_pad.device
-    proj = torch.cat(
-        [
-            _ad_project(lib_pad[r0 : r0 + _AD_PROJ_ROWS], d, g, chan)
-            for r0 in range(0, lp, _AD_PROJ_ROWS)
-        ]
-    )
+    step = nseg * max(1, _AD_PROJ_ROWS // nseg)  # whole k rows at a time
+    proj = None
+    for r0 in range(0, lp, step):
+        part = _ad_project(lib_pad[r0 : r0 + step], d, g, chan)
+        if proj is None:
+            proj = torch.empty((nseg, part.shape[1], _TL_SEG), dtype=torch.float32, device=dev)
+        k0 = r0 // nseg
+        proj[:, :, k0 : k0 + part.shape[0] // nseg] = part.view(-1, nseg, part.shape[1]).permute(
+            1, 2, 0
+        )
+        del part
     pos = torch.arange(lp, device=dev)
-    cols = (pos % w) * nseg + pos // w
-    return proj[cols], cols.to(torch.int32), real_l
+    cols = (pos % _TL_SEG) * nseg + pos // _TL_SEG
+    return proj, cols.to(torch.int32), real_l
+
+
+def _ad_rows(proj: torch.Tensor) -> torch.Tensor:
+    """A coarse library [nseg, dout, 128] as rows [lp, dout] in position
+    order (row s*128 + k is position k of segment s), a copy."""
+    nseg, dout, w = proj.shape
+    return proj.permute(0, 2, 1).reshape(nseg * w, dout)
 
 
 # ---------------------------------------------------------------------------
-# Segment top-cap (K4)
+# Segment top-cap (K4) and the fused coarse pass (K9)
 # ---------------------------------------------------------------------------
 
-#: the most survivors a segment can keep (K4 keeps a bit per position)
+#: the most survivors a segment can keep
 _SEG_CAP_MAX = _TL_SEG
-#: K4 blocks per SM that fill the card (the warps stride over the segments)
-_SEG_BLOCKS_PER_SM = 8
+#: K4's launch (`csrc/seg_topcap.cu`): (row, segment) chunks per block (one
+#: thread each), and a chunk's stride in shared memory in 4-byte words: its
+#: 128 values and 4 of padding, so the 16-byte reads of one chunk per
+#: thread fall in distinct banks. K9 writes its sums at the same stride.
+_K4_CHUNKS = 128
+_SEG_ROW_WORDS = 132
+#: K9's tiles (`csrc/coarse_topcap.cu`): query rows per block (one segment
+#: of 128 positions each), and coordinates per step of its K-loop
+_K9_TQ = 128
+_K9_KT = 32
+
+
+def _k4_plan(rows: int, nseg: int) -> tuple[int, int]:
+    """K4's launch for a [rows, nseg*128] stripe: (blocks, shared-memory
+    bytes a block). Block i stages and selects chunks 128i..128i+127 of the
+    rows*nseg (row, segment) chunks."""
+    return -(-rows * nseg // _K4_CHUNKS), _K4_CHUNKS * _SEG_ROW_WORDS * 4
+
+
+def _k9_plan(rows: int, nseg: int, dout: int) -> tuple[int, int, int, int]:
+    """K9's launch for `rows` projected query rows of `dout` coordinates
+    against nseg segments: (rpad, blocks, steps, shared-memory bytes a
+    block). Query rows are padded to rpad, a multiple of 128; block
+    qt * nseg + s takes query tile qt against segment s; its K-loop takes
+    `steps` steps of 32 coordinates (the last one ragged). The shared
+    memory holds the two-stage ring of query and library tiles, then,
+    over it, the tile's int32 sums at the selection's stride."""
+    rpad = -(-rows // _K9_TQ) * _K9_TQ
+    ring = 2 * _K9_KT * (_K9_TQ + _TL_SEG)
+    return (rpad, rpad // _K9_TQ * nseg, -(-dout // _K9_KT),
+            4 * max(ring, _K9_TQ * _SEG_ROW_WORDS))
 
 
 def _seg_topcap_ref(
@@ -712,20 +758,23 @@ def _seg_topcap_ref(
     return _least(_keys(dist, cols).view(-1, nseg, _TL_SEG), cap).flatten(1)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and 16-byte aligned (the kernels read 16-byte vectors;
+    a fresh allocation is aligned)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def _seg_topcap_cuda(
     dist: torch.Tensor, cols: torch.Tensor, cap: int, real_l: int
 ) -> torch.Tensor:
     r, lp = dist.shape
     nseg = lp // _TL_SEG
-    # K4 reads whole 16-byte vectors; a fresh allocation is aligned
-    d, c = dist.contiguous(), cols.to(torch.int32).contiguous()
-    d = d.clone() if d.data_ptr() % 16 else d
-    c = c.clone() if c.data_ptr() % 16 else c
+    d, c = _aligned(dist), _aligned(cols.to(torch.int32))
     out = torch.empty((r, nseg * cap), dtype=torch.int64, device=dist.device)
     if r == 0:
         return out
-    stream = torch.cuda.current_stream(dist.device).cuda_stream
-    sms = torch.cuda.get_device_properties(dist.device).multi_processor_count
+    blocks, smem = _k4_plan(r, nseg)
     SEG_TOPCAP.launch(
         dist.device.index,
         ctypes.c_void_p(d.data_ptr()),
@@ -736,8 +785,9 @@ def _seg_topcap_cuda(
         cap,
         real_l,
         _TL_BIG,
-        sms * _SEG_BLOCKS_PER_SM,
-        ctypes.c_void_p(stream),
+        blocks,
+        smem,
+        ctypes.c_void_p(torch.cuda.current_stream(dist.device).cuda_stream),
     )
     return out
 
@@ -749,11 +799,11 @@ def seg_topcap(
 
     dist [r, nseg*128] int32 (position s*128 + k in segment s), cols
     [nseg*128] integer, the library row of each position, growing with k
-    within each segment; 1 <= cap <= 128. Positions with cols >= real_l
-    count as `_TL_BIG`. Returns int64 [r, nseg*cap]: per segment its `cap`
-    least keys (value << 32) | col, ascending, the lowest col first among
-    equal values. A CUDA tensor goes to K4 (`csrc/seg_topcap.cu`), a CPU
-    tensor to `_seg_topcap_ref`.
+    within each segment (K4 relies on it and raises otherwise); 1 <= cap <=
+    128. Positions with cols >= real_l count as `_TL_BIG`. Returns int64
+    [r, nseg*cap]: per segment its `cap` least keys (value << 32) | col,
+    ascending, the lowest col first among equal values. A CUDA tensor goes
+    to K4 (`csrc/seg_topcap.cu`), a CPU tensor to `_seg_topcap_ref`.
     """
     if dist.dtype != torch.int32 or dist.dim() != 2 or dist.shape[1] % _TL_SEG:
         raise ValueError(
@@ -770,6 +820,8 @@ def seg_topcap(
         return _seg_topcap_ref(dist, cols, cap, real_l)
     if dist.device.type != "cuda":
         raise ValueError(f"unsupported device {dist.device}")
+    if cols.shape[0] and not bool((cols.view(-1, _TL_SEG).diff(dim=1) > 0).all()):
+        raise ValueError("K4 takes cols that grow within each segment")
     return _seg_topcap_cuda(dist, cols, cap, real_l)
 
 
@@ -793,26 +845,103 @@ def seg_topk(seg: torch.Tensor, cap: int) -> tuple[torch.Tensor, torch.Tensor]:
     return (keys >> 32).to(torch.int32), (keys & (_TL_SEG - 1)).to(torch.int32)
 
 
+def _coarse_topcap_ref(xp: torch.Tensor, proj: torch.Tensor, cols: torch.Tensor,
+                       cap: int, real_l: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of K9: the coarse stripe `l1_block` of the
+    projected rows xp [r, dout] against the coarse library proj [nseg,
+    dout, 128] (as rows), then `_seg_topcap_ref`. Returns (keys
+    [r, nseg*cap] i64, s_min [r] i32: the least over segments of the
+    cap-th kept value)."""
+    keys = _seg_topcap_ref(l1_block(xp, _ad_rows(proj)), cols, cap, real_l)
+    worst = keys.view(keys.shape[0], -1, cap)[:, :, cap - 1] >> 32
+    return keys, worst.min(dim=1).values.to(torch.int32)
+
+
+def _coarse_topcap_cuda(xp, proj, cols, cap: int, real_l: int, keys, s_min) -> None:
+    r, dout = xp.shape
+    nseg = proj.shape[0]
+    dev = xp.device
+    rpad, blocks, _, smem = _k9_plan(r, nseg, dout)
+    xt = torch.zeros((dout, rpad), dtype=torch.float32, device=dev)
+    xt[:, :r] = xp.t()
+    p, c = _aligned(proj), _aligned(cols)
+    s_min.fill_(I32_MAX)
+    COARSE_TOPCAP.launch(
+        dev.index,
+        ctypes.c_void_p(xt.data_ptr()),
+        ctypes.c_void_p(p.data_ptr()),
+        ctypes.c_void_p(c.data_ptr()),
+        ctypes.c_void_p(keys.data_ptr()),
+        ctypes.c_void_p(s_min.data_ptr()),
+        r,
+        rpad,
+        dout,
+        nseg,
+        cap,
+        real_l,
+        _TL_BIG,
+        blocks,
+        smem,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+
+
+def coarse_topcap(xp: torch.Tensor, coarse_lib, cap: int, keys: torch.Tensor,
+                  s_min: torch.Tensor) -> None:
+    """The coarse pass's selection for projected query rows xp [r, dout]
+    int32 against `coarse_lib` (`_ad_coarse_lib`): per segment the `cap`
+    least keys (coarse distance << 32) | library row, ascending, the lowest
+    row first among equal distances, padding rows at `_TL_BIG`, written
+    into keys [r, nseg*cap] int64; and into s_min [r] int32 the least over
+    segments of the cap-th kept distance. Both outputs contiguous, on xp's
+    device. A CUDA tensor goes to K9 (`csrc/coarse_topcap.cu`), which never
+    writes the [r, lp] distance stripe; a CPU tensor to
+    `_coarse_topcap_ref`."""
+    proj, cols, real_l = coarse_lib
+    r = xp.shape[0]
+    if proj.dim() != 3 or proj.shape[2] != _TL_SEG or proj.dtype != torch.float32:
+        raise ValueError(f"coarse library must be f32 [nseg, dout, {_TL_SEG}], got "
+                         f"{proj.dtype} {tuple(proj.shape)}")
+    if xp.dim() != 2 or xp.shape[1] != proj.shape[1] or xp.dtype != torch.int32:
+        raise ValueError(f"projected rows must be int32 [r, {proj.shape[1]}], got "
+                         f"{xp.dtype} {tuple(xp.shape)}")
+    if cols.dtype != torch.int32 or cols.shape != (proj.shape[0] * _TL_SEG,):
+        raise ValueError(f"cols must be int32 [{proj.shape[0] * _TL_SEG}]")
+    if not 1 <= cap <= _SEG_CAP_MAX:
+        raise ValueError(f"cap must be in 1..{_SEG_CAP_MAX}, got {cap}")
+    if (keys.shape != (r, proj.shape[0] * cap) or keys.dtype != torch.int64
+            or s_min.shape != (r,) or s_min.dtype != torch.int32
+            or not (keys.is_contiguous() and s_min.is_contiguous())):
+        raise ValueError("keys must be contiguous int64 [r, nseg*cap], s_min int32 [r]")
+    if not (xp.device == proj.device == cols.device == keys.device == s_min.device):
+        raise ValueError("coarse_topcap's tensors are on different devices")
+    if r == 0:
+        return
+    if xp.device.type == "cpu":
+        k, m = _coarse_topcap_ref(xp, proj, cols, cap, real_l)
+        keys.copy_(k)
+        s_min.copy_(m)
+        return
+    if xp.device.type != "cuda":
+        raise ValueError(f"unsupported device {xp.device}")
+    _coarse_topcap_cuda(xp, proj, cols, cap, real_l, keys, s_min)
+
+
 def _ad_coarse(x, coarse_lib, d: int, g: int, chan: bool, cap: int):
     """Step 1 for the blocks x [r, d]: per segment, the `cap` least coarse
-    (bound, row) keys, through `seg_topcap` (K4 on the card). Returns
+    (bound, row) keys, through `coarse_topcap` (K9 on the card). Returns
     (keys [r, nseg*cap] i64, ascending within each segment; s_min [r] i32,
     the least over segments of the worst kept bound, part of the bound on
     every row not kept)."""
-    proj, cols, real_l = coarse_lib
-    lp = proj.shape[0]
-    nseg = lp // _TL_SEG
+    proj = coarse_lib[0]
+    nseg = proj.shape[0]
     r = x.shape[0]
     keys = torch.empty((r, nseg * cap), dtype=torch.int64, device=x.device)
     s_min = torch.empty((r,), dtype=torch.int32, device=x.device)
-    bc = max(1, _AD_COARSE_KEY_BYTES // (8 * lp))
+    bc = max(1, _AD_COARSE_KEY_BYTES // (8 * nseg * _TL_SEG))
     for b0 in range(0, r, bc):
-        dist = l1_block(_ad_project(x[b0 : b0 + bc], d, g, chan), proj)
-        seg = seg_topcap(dist, cols, cap, real_l)
-        del dist
-        keys[b0 : b0 + bc] = seg
-        worst = seg.view(-1, nseg, cap)[:, :, cap - 1] >> 32
-        s_min[b0 : b0 + bc] = worst.min(dim=1).values.to(torch.int32)
+        coarse_topcap(_ad_project(x[b0 : b0 + bc], d, g, chan), coarse_lib, cap,
+                      keys[b0 : b0 + bc], s_min[b0 : b0 + bc])
     return keys, s_min
 
 

@@ -20,7 +20,8 @@ each step it prints the bytes of its inputs (args), of its device outputs
 
   A  K3 alone (`l1_rows`), random candidates;
   D  the coarse pass at g = 32 per channel and cap = 8 (`_ad_coarse_lib`
-     and `_ad_coarse`);
+     and `_ad_coarse`): on the card it runs K9 and never the distance
+     stripe (`l1_block` is made to raise), and its peak is printed;
   C  the rescore `_ad_rescore` at m = 8192, k = 512, on D's survivors;
   W  the whole `l1_topk_adaptive` for the 1024 blocks (at this size
      `_ad_params` gives m = 8192 and cap = 8, and the certificate's audit
@@ -39,6 +40,7 @@ import sys
 import torch
 
 from emosaic_tpu_torch.ops import distance
+from emosaic_tpu_torch.ops._kernels import COARSE_TOPCAP
 from emosaic_tpu_torch.probes.seg8 import card_line, log
 
 LP, D, M, B_SLICE, K = 2_000_000, 3072, 8192, 1024, 512
@@ -119,7 +121,21 @@ def probe(dev, card: str = "", lp: int = LP, d: int = D, m: int = M,
         cl = distance._ad_coarse_lib(lib, d, G, True, lp)
         return distance._ad_coarse(blocks, cl, d, G, True, CAP)
 
-    (keys, s_min), rows["D_ad_coarse"] = measure("D_ad_coarse", coarse, (blocks, lib), lib_b)
+    def no_stripe(*a, **k):
+        raise AssertionError("D: the coarse pass built a distance stripe")
+
+    stripe, distance.l1_block = distance.l1_block, no_stripe
+    k9 = COARSE_TOPCAP.launches
+    try:
+        (keys, s_min), rows["D_ad_coarse"] = measure("D_ad_coarse", coarse, (blocks, lib),
+                                                     lib_b)
+    finally:
+        distance.l1_block = stripe
+    if COARSE_TOPCAP.launches == k9:
+        raise AssertionError("D: the coarse pass did not run K9")
+    log(f"D coarse pass: K9, no [rows, lp] stripe; peak "
+        f"{rows['D_ad_coarse']['peak_gb']:.2f} GB (temp {rows['D_ad_coarse']['temp_gb']:.2f}, "
+        f"the projected library among it) [{card}]")
     _, rows["C_ad_rescore"] = measure(
         "C_ad_rescore",
         lambda: distance._ad_rescore(blocks, keys, s_min, lib, m=m, k=k, real_l=lp),

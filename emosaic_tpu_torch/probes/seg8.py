@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""The segment top-cap lab probe on a GPU: kernel K4
-(`csrc/seg_topcap.cu`) inside the adaptive scorer's coarse pass, the
-counterpart of `tools/tpu_r14_seg8.py`.
+"""The segment top-cap lab probe on a GPU, the counterpart of
+`tools/tpu_r14_seg8.py`: the adaptive scorer's coarse pass on kernel K9
+(`csrc/coarse_topcap.cu`, scoring and selection fused), on the cdist
+stripe + K4 (`csrc/seg_topcap.cu`), and on the plain selection.
 
     python -m emosaic_tpu_torch.probes.seg8
 
@@ -14,12 +15,14 @@ generator, so the values are not numpy's. Phases:
      against the tool's contract, a stable per-segment argsort, on the
      tool's own case: a full-tie segment, a `_TL_BIG` lookalike and an
      nseg off the 128 grid; caps 8 and 16;
-  B  the coarse pass `_ad_coarse` on the card with the plain selection
-     `_seg_topcap_ref` (the port's selection before K4);
-  P  the same pass with K4: bit-equal to B, with both passes' times (host
-     clock around a synchronized call, the second of two runs), and the
-     selection alone on one chunk of the pass (CUDA events): K4, its plain
-     version, and `torch.topk` on the packed keys.
+  B  the coarse pass `_ad_coarse` on the card through K9's plain version
+     `_coarse_topcap_ref` (the cdist stripe, then the plain selection);
+  C  the same pass through the cdist stripe and K4 (the port's pass
+     before K9);
+  P  the same pass on K9: bit-equal to B and C, with the three passes'
+     times (host clock around a synchronized call, the second of two
+     runs), and the selection alone on one chunk's stripe (CUDA events):
+     K4, its plain version, and `torch.topk` on the packed keys.
 
 The tool's phase F (its coarse pass with an f32-keyed `lax.top_k`) is left
 out: the port selects on packed int64 keys, which have no f32 form.
@@ -37,7 +40,7 @@ import numpy as np
 import torch
 
 from emosaic_tpu_torch.ops import distance
-from emosaic_tpu_torch.ops._kernels import SEG_TOPCAP
+from emosaic_tpu_torch.ops._kernels import COARSE_TOPCAP
 
 B, D, G, CAP, L = 16384, 3072, 32, 8, 200_000
 CENTRES, NOISE, SEED = 512, 12.0, 11
@@ -83,14 +86,22 @@ def phase_i(dev) -> None:
 
 
 @contextlib.contextmanager
-def plain_selection():
-    """Run the coarse pass with the plain selection on the card."""
-    saved = distance.seg_topcap
-    distance.seg_topcap = distance._seg_topcap_ref
+def stripe_selection(select):
+    """Run the coarse pass on the cdist stripe (`l1_block`) and `select`
+    (`_seg_topcap_ref` or K4's `seg_topcap`) in place of K9."""
+    saved = distance.coarse_topcap
+
+    def composed(xp, coarse_lib, cap, keys, s_min):
+        proj, cols, real_l = coarse_lib
+        k = select(distance.l1_block(xp, distance._ad_rows(proj)), cols, cap, real_l)
+        keys.copy_(k)
+        s_min.copy_((k.view(k.shape[0], -1, cap)[:, :, cap - 1] >> 32).min(dim=1).values)
+
+    distance.coarse_topcap = composed
     try:
         yield
     finally:
-        distance.seg_topcap = saved
+        distance.coarse_topcap = saved
 
 
 def timed(fn, dev):
@@ -117,7 +128,7 @@ def events_ms(fn, reps: int = 3) -> float:
 
 def probe(dev, card: str = "", b: int = B, l: int = L, d: int = D, g: int = G,
           cap: int = CAP) -> dict:
-    """Phases I, B and P on `dev`; returns their times and K4's launches."""
+    """Phases I, B, C and P on `dev`; returns their times."""
     phase_i(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -136,23 +147,28 @@ def probe(dev, card: str = "", b: int = B, l: int = L, d: int = D, g: int = G,
     def coarse():
         return distance._ad_coarse(blocks, coarse_lib, d, g, True, cap)
 
-    with plain_selection():
+    with stripe_selection(distance._seg_topcap_ref):
         (keys_b, smin_b), plain_s = timed(coarse, dev)
-    SEG_TOPCAP.launches = 0
-    (keys_p, smin_p), k4_s = timed(coarse, dev)
-    launches = SEG_TOPCAP.launches
-    if not (torch.equal(keys_b, keys_p) and torch.equal(smin_b, smin_p)):
-        raise AssertionError("P: the K4 coarse pass differs from the plain one")
+    with stripe_selection(distance.seg_topcap):
+        (keys_c, smin_c), k4_s = timed(coarse, dev)
+    COARSE_TOPCAP.launches = 0
+    (keys_p, smin_p), k9_s = timed(coarse, dev)
+    launches = COARSE_TOPCAP.launches
+    for what, k_, m_ in (("C (cdist + K4)", keys_c, smin_c), ("P (K9)", keys_p, smin_p)):
+        if not (torch.equal(keys_b, k_) and torch.equal(smin_b, m_)):
+            raise AssertionError(f"{what}: the coarse pass differs from the plain one")
     nseg = lp // distance._TL_SEG
-    log(f"B coarse pass, plain selection: {plain_s:.3f} s [{card}]")
-    log(f"P coarse pass, K4: {k4_s:.3f} s, keys [{b}, {nseg}*{cap}] and s_min bit-equal "
-        f"to B; {launches // 2} K4 launches a pass [{card}]")
-    del keys_b, smin_b, keys_p, smin_p
+    log(f"B coarse pass, cdist stripe + plain selection: {plain_s:.3f} s [{card}]")
+    log(f"C coarse pass, cdist stripe + K4: {k4_s:.3f} s, bit-equal to B [{card}]")
+    log(f"P coarse pass, K9: {k9_s:.3f} s, keys [{b}, {nseg}*{cap}] and s_min bit-equal "
+        f"to B; {launches // 2} K9 launches a pass [{card}]")
+    del keys_b, smin_b, keys_c, smin_c, keys_p, smin_p
 
     # the selection alone on one chunk of the pass
     rows = min(b, max(1, distance._AD_COARSE_KEY_BYTES // (8 * lp)))
     proj, cols, real_l = coarse_lib
-    dist = distance.l1_block(distance._ad_project(blocks[:rows], d, g, True), proj)
+    dist = distance.l1_block(distance._ad_project(blocks[:rows], d, g, True),
+                             distance._ad_rows(proj))
     keys = distance._keys(dist.masked_fill(cols >= real_l, distance._TL_BIG), cols)
     k4_ms = events_ms(lambda: distance.seg_topcap(dist, cols, cap, real_l))
     plain_ms = events_ms(lambda: distance._seg_topcap_ref(dist, cols, cap, real_l))
@@ -162,7 +178,8 @@ def probe(dev, card: str = "", b: int = B, l: int = L, d: int = D, g: int = G,
         f"plain {plain_ms:.3f} ms, torch.topk on the packed keys {lib_ms:.3f} ms [{card}]")
     del dist, keys, lib_pad, coarse_lib, blocks
     torch.cuda.empty_cache()
-    return {"coarse_plain_s": plain_s, "coarse_k4_s": k4_s, "k4_ms": k4_ms,
+    return {"coarse_plain_s": plain_s, "coarse_cdist_k4_s": k4_s, "coarse_k9_s": k9_s,
+            "k4_ms": k4_ms,
             "plain_ms": plain_ms, "library_ms": lib_ms, "rows": rows, "lp": lp,
             "nseg": nseg, "cap": cap}
 

@@ -1,4 +1,4 @@
-"""K1 to K8 against their plain torch versions on an NVIDIA GPU.
+"""K1 to K9 against their plain torch versions on an NVIDIA GPU.
 
 A CUDA kernel has no CPU mode, so these tests are marked `cuda` and skip
 on a host without a GPU. This file imports neither jax nor the JAX
@@ -14,6 +14,7 @@ import torch
 from emosaic_tpu_torch.ops import composite, composite_lab, distance
 from emosaic_tpu_torch.ops._kernels import (
     BAND_TRANSPOSE,
+    COARSE_TOPCAP,
     COMPOSE,
     COMPOSE_BULK,
     COMPOSE_BULK2,
@@ -273,11 +274,63 @@ def test_k4_tool_contract_and_the_coarse_pass(cuda):
     outs = []
     for dev in (cuda, torch.device("cpu")):
         cl = distance._ad_coarse_lib(torch.from_numpy(lib_pad).to(dev), d, g, True, l)
-        before = SEG_TOPCAP.launches
+        before = COARSE_TOPCAP.launches
         keys, s_min = distance._ad_coarse(torch.from_numpy(blocks).to(dev), cl, d, g, True, 16)
-        assert SEG_TOPCAP.launches == before + (dev.type == "cuda")
+        assert COARSE_TOPCAP.launches == before + (dev.type == "cuda")
         outs.append((keys.cpu(), s_min.cpu()))
     assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("cap", [1, 2, 5, 16, 32, 33, 128])
+def test_k4_tie_storms_and_padding(cuda, cap):
+    """Whole segments of one value, pairs of values, values past 2^24 (the
+    rank path) and a padded suffix, at caps on every path of the kernel."""
+    rng = np.random.default_rng(cap)
+    nseg, r = 9, 6
+    dist, cols = _stripe(rng, r, nseg, cuda, hi=3)
+    dist[1] = 4  # a storm over the whole row
+    dist[2, 128 * 3 : 128 * 4] = 2**24 + 5  # one segment past the u32 keys
+    dist[3, ::2] = 2**30 - 1
+    for real_l in (nseg * 128, nseg * 128 - 1, nseg * 128 - 200):
+        got = distance.seg_topcap(dist, cols, cap, real_l)
+        torch.cuda.synchronize()
+        assert torch.equal(got, distance._seg_topcap_ref(dist, cols, cap, real_l))
+
+
+def _coarse_case(rng, l, d, g, dev, kind):
+    """(projected blocks, coarse library) on dev: a library of l rows with
+    a ragged last segment; "storm" repeats 3 rows over the whole library
+    (ties everywhere, across segments), "clustered" is 20 centres +-3."""
+    lp = -(-l // 128) * 128
+    if kind == "storm":
+        lib = rng.integers(0, 256, size=(3, d))[rng.integers(0, 3, size=l)]
+    else:
+        c = rng.integers(0, 256, size=(20, d))
+        lib = np.clip(c[rng.integers(0, 20, size=l)] + rng.integers(-3, 4, (l, d)), 0, 255)
+    lib_pad = np.zeros((lp, d), np.uint8)
+    lib_pad[:l] = lib
+    blocks = np.clip(lib[rng.integers(0, l, size=70)] + rng.integers(-2, 3, (70, d)), 0, 255)
+    cl = distance._ad_coarse_lib(torch.from_numpy(lib_pad).to(dev), d, g, True, l)
+    xp = distance._ad_project(torch.from_numpy(blocks.astype(np.uint8)).to(dev), d, g, True)
+    return xp, cl
+
+
+@pytest.mark.parametrize("kind", ["storm", "clustered"])
+@pytest.mark.parametrize("cap", [1, 8, 16, 100])
+@pytest.mark.parametrize("l,d,g", [(100, 48, 8), (900, 108, 4), (3000, 768, 32),
+                                   (700, 12288, 32)])
+def test_k9_matches_plain(cuda, kind, cap, l, d, g):
+    rng = np.random.default_rng(l + cap)
+    xp, cl = _coarse_case(rng, l, d, g, cuda, kind)
+    nseg = cl[0].shape[0]
+    keys = torch.empty((xp.shape[0], nseg * cap), dtype=torch.int64, device=cuda)
+    s_min = torch.empty((xp.shape[0],), dtype=torch.int32, device=cuda)
+    before = COARSE_TOPCAP.launches
+    distance.coarse_topcap(xp, cl, cap, keys, s_min)
+    torch.cuda.synchronize()
+    assert COARSE_TOPCAP.launches == before + 1
+    wk, ws = distance._coarse_topcap_ref(xp, cl[0], cl[1], cap, cl[2])
+    assert torch.equal(keys, wk) and torch.equal(s_min, ws)
 
 
 @pytest.mark.parametrize("h,w", [(1, 16), (7, 13), (24, 6144), (3, 100003)])

@@ -9,6 +9,7 @@ its sort; narrower rows, and rows too wide for one beside the sort, take
 the per-query path.
 """
 
+import numpy as np
 import pytest
 
 from emosaic_tpu_torch.ops import distance as P
@@ -84,3 +85,71 @@ def test_k3_plan_fits_the_kernel(m, d):
 def test_k3_rows_too_wide_for_a_group_take_the_per_query_path():
     nvec = (P._K3_SMEM_BYTES - P._K3_SORT_BYTES) // 16 + 1
     assert P._k3_plan(64, nvec) == (0, 0)
+
+
+# K4 and K9 (`csrc/seg_topcap.cu`, `csrc/coarse_topcap.cu`). The C entry
+# points refuse a plan that does not match their own constants.
+
+#: the shared memory one block may use on an H100, and one SM's (with 1 KB
+#: reserved a block)
+_SMEM_BLOCK_MAX = 227 * 1024
+_SM_SMEM = 228 * 1024
+
+
+@pytest.mark.parametrize("rows,nseg", [(1, 1), (3, 7), (96, 512), (16384, 512), (16400, 512),
+                                       (1341, 1563), (2, 15625), (127, 1)])
+def test_k4_blocks_cover_every_chunk_once(rows, nseg):
+    blocks, smem = P._k4_plan(rows, nseg)
+    chunks = rows * nseg
+    # block i stages chunks 128i .. 128i + 127; only the last one is ragged
+    assert blocks * P._K4_CHUNKS >= chunks > (blocks - 1) * P._K4_CHUNKS
+    assert blocks <= 2**31 - 1
+    assert smem == P._K4_CHUNKS * P._SEG_ROW_WORDS * 4 <= _SMEM_BLOCK_MAX
+    assert 3 * (smem + 1024) <= _SM_SMEM  # three blocks share an SM
+    # a chunk's 16-byte reads: 33 units apart, distinct banks in a phase of 8
+    assert P._SEG_ROW_WORDS >= P._TL_SEG and P._SEG_ROW_WORDS % 4 == 0
+    assert len({(t * P._SEG_ROW_WORDS // 4) % 8 for t in range(8)}) == 8
+
+
+def test_k4_flagship_stripe_passes_4_gib_in_one_plan():
+    rows, nseg = 16400, 512
+    blocks, _ = P._k4_plan(rows, nseg)
+    assert rows * nseg * 128 * 4 > 2**32 and blocks == 65600
+
+
+@pytest.mark.parametrize("rows,nseg", [(1, 1), (37, 7), (300, 512), (129, 1563), (200, 977)])
+def test_k9_tiles_cover_every_row_segment_pair_once(rows, nseg):
+    rpad, blocks, _, _ = P._k9_plan(rows, nseg, 96)
+    assert rpad % P._K9_TQ == 0 and rows <= rpad < rows + P._K9_TQ
+    count = np.zeros((rows, nseg), np.int64)
+    for bid in range(blocks):  # block qt * nseg + s: query tile qt, segment s
+        qt, s = divmod(bid, nseg)
+        count[qt * P._K9_TQ : (qt + 1) * P._K9_TQ, s] += 1
+    assert (count == 1).all()
+
+
+def test_k9_flagship_plan():
+    # 4096-row chunks of the flagship's 16384 blocks against 512 segments
+    assert P._k9_plan(4096, 512, 96) == (4096, 32 * 512, 3, 67584)
+
+
+@pytest.mark.parametrize("dout", [1, 5, 6, 9, 24, 27, 31, 32, 33, 96, 384, 1536])
+def test_k9_k_loop_covers_every_coordinate(dout):
+    _, _, steps, _ = P._k9_plan(100, 3, dout)
+    seen = [c for k in range(steps) for c in range(k * P._K9_KT, min(dout, (k + 1) * P._K9_KT))]
+    assert seen == list(range(dout))
+    assert all(min(P._K9_KT, dout - k * P._K9_KT) > 0 for k in range(steps))
+
+
+@pytest.mark.parametrize(
+    "mode,dout", [(4, 6), (8, 6), (16, 24), (6, 27), (32, 96), (64, 384), (128, 1536)]
+)
+def test_k9_shared_memory_fits_every_planned_dout(mode, dout):
+    d = 3 * mode * mode
+    _, g, chan, *_ = P._ad_plan(16384, 65534, d, 512)
+    assert chan and (d // 3 // g) * 3 == dout
+    _, _, _, smem = P._k9_plan(16384, 512, dout)
+    ring = 4 * 2 * P._K9_KT * (P._K9_TQ + P._TL_SEG)
+    assert ring <= smem and 4 * P._K9_TQ * P._SEG_ROW_WORDS <= smem
+    assert smem <= _SMEM_BLOCK_MAX
+    assert 2 * (smem + 1024) <= _SM_SMEM  # two blocks share an SM

@@ -5,9 +5,11 @@ coarse pass built on it, against the JAX package and the TPU lab kernel.
 `tools/tpu_r14_seg8.py` (`seg_topk_pallas`, run through the Pallas
 interpreter, the module loaded by its path) and against
 `jax.lax.top_k(-seg, cap)`, exactly, with the tool's own tie and padding
-cases. `_ad_coarse` (whose selection is `seg_topcap`) is held against
-`_ad_coarse_jit` at the two caps the scorer uses. K4 itself runs only on
-a GPU: `tests/test_torch_gpu.py` holds it against `_seg_topcap_ref`.
+cases. `_ad_coarse` (whose selection is `coarse_topcap`, kernel K9's
+plain version `_coarse_topcap_ref` on the CPU) is held against
+`_ad_coarse_jit` at caps 1, 8 and 16, every group width and one segment.
+K4 and K9 themselves run only on a GPU: `tests/test_torch_gpu.py` holds
+them against `_seg_topcap_ref` and `_coarse_topcap_ref`.
 """
 
 import functools
@@ -22,7 +24,7 @@ import torch
 
 from emosaic_tpu.ops import distance as jax_distance
 from emosaic_tpu_torch.ops import distance
-from emosaic_tpu_torch.ops._kernels import SEG_TOPCAP
+from emosaic_tpu_torch.ops._kernels import COARSE_TOPCAP, SEG_TOPCAP
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -119,17 +121,32 @@ def test_seg_topcap_checks_its_inputs_and_does_not_launch_on_the_cpu():
         distance.seg_topk(torch.zeros((1, 2, 64), dtype=torch.int32), 8)
 
 
-@pytest.mark.parametrize("cap", [8, 16])
-@pytest.mark.parametrize("d,g,chan,kind", [(48, 4, True, "clustered"), (96, 8, True, "dupes"),
-                                          (128, 4, False, "random")])
-def test_ad_coarse_keys_and_s_min_match_jax(rng, cap, d, g, chan, kind):
+@pytest.mark.parametrize("cap", [1, 8, 16])
+@pytest.mark.parametrize(
+    "d,g,chan,kind,l",
+    [(48, 4, True, "clustered", 2500),    # g = 4 by hand (the plan takes 8)
+     (96, 8, True, "dupes", 2500),        # g = 8 by hand (the plan takes 16)
+     (128, 4, False, "random", 2500),     # g = 4 by hand (the plan takes 32)
+     (48, 8, True, "random", 2500),       # mode 4: dout 6
+     (48, 8, True, "dupes", 100),         # L <= 128: one segment
+     (108, 4, True, "clustered", 2500),   # mode 6: dout 27
+     (768, 32, True, "dupes", 1000),      # mode 16: dout 24
+     (80, 16, False, "random", 700),      # g = 16: dout 5
+     (12288, 32, True, "clustered", 300)],  # mode 64: dout 384
+)
+def test_ad_coarse_keys_and_s_min_match_jax(rng, cap, d, g, chan, kind, l):
     """The coarse pass's survivor keys and s_min, bit for bit, against
-    `_ad_coarse_jit`, with a ragged last segment (L not a multiple of 128)."""
-    b, l = 16, 2500
+    `_ad_coarse_jit`, with a ragged last segment (L not a multiple of 128),
+    at every group width of `_AD_GROUPS`, one segment, and exact duplicate
+    rows in other segments ("dupes": row i and row i + L/2)."""
+    b = 16
     lp = -(-l // 128) * 128
+    if (d, g) not in ((48, 4), (96, 8), (128, 4)):  # else the plan's own choice
+        assert distance._ad_plan(b, l, d, 1)[1:3] == (g, chan)
     if kind == "clustered":
         bases = rng.integers(0, 256, size=(25, 1, d))
-        lib = np.clip(np.repeat(bases, 100, axis=0)[:, 0] + rng.integers(-4, 5, (l, d)), 0, 255)
+        lib = np.clip(np.repeat(bases, -(-l // 25), axis=0)[:l, 0]
+                      + rng.integers(-4, 5, (l, d)), 0, 255)
     else:
         lib = rng.integers(0, 256, size=(l, d))
     lib = lib.astype(np.uint8)
@@ -147,3 +164,35 @@ def test_ad_coarse_keys_and_s_min_match_jax(rng, cap, d, g, chan, kind):
     np.testing.assert_array_equal((keys >> 32).numpy(), np.asarray(vals))
     np.testing.assert_array_equal((keys & 0xFFFFFFFF).numpy(), np.asarray(cols))
     np.testing.assert_array_equal(sm.numpy(), np.asarray(s_min))
+
+
+def test_coarse_library_layout_and_plain_k9():
+    """`_ad_coarse_lib` lays the projection out as K9 reads it ([nseg, dout,
+    128] f32, proj[s, c, k] = coordinate c of row k*nseg + s), and K9's
+    plain version is `l1_block` then `_seg_topcap_ref` on those rows."""
+    rng = np.random.default_rng(9)
+    d, g, l = 48, 8, 300
+    lp = 384
+    lib_pad = np.zeros((lp, d), np.uint8)
+    lib_pad[:l] = rng.integers(0, 256, size=(l, d))
+    proj, cols, real_l = distance._ad_coarse_lib(_t(lib_pad), d, g, True, l)
+    want = distance._ad_project(_t(lib_pad), d, g, True)
+    assert proj.dtype == torch.float32 and tuple(proj.shape) == (3, 6, 128)
+    for s, c, k in [(0, 0, 0), (2, 5, 127), (1, 3, 64)]:
+        assert proj[s, c, k] == want[k * 3 + s, c]
+    np.testing.assert_array_equal(distance._ad_rows(proj).numpy(), want[cols.long()].numpy())
+    xp = distance._ad_project(_t(lib_pad[:5]), d, g, True)
+    keys = torch.empty((5, 3 * 4), dtype=torch.int64)
+    s_min = torch.empty((5,), dtype=torch.int32)
+    COARSE_TOPCAP.launches = 0
+    distance.coarse_topcap(xp, (proj, cols, real_l), 4, keys, s_min)
+    assert COARSE_TOPCAP.launches == 0
+    wk, ws = distance._coarse_topcap_ref(xp, proj, cols, 4, real_l)
+    ref = distance._seg_topcap_ref(distance.l1_block(xp, want[cols.long()]), cols, 4, real_l)
+    assert torch.equal(keys, wk) and torch.equal(wk, ref) and torch.equal(s_min, ws)
+    with pytest.raises(ValueError, match="cap"):
+        distance.coarse_topcap(xp, (proj, cols, real_l), 129, keys, s_min)
+    with pytest.raises(ValueError, match="keys"):
+        distance.coarse_topcap(xp, (proj, cols, real_l), 8, keys, s_min)
+    with pytest.raises(ValueError, match="projected rows"):
+        distance.coarse_topcap(xp.float(), (proj, cols, real_l), 4, keys, s_min)
