@@ -59,10 +59,25 @@ Run from the root of a checkout. Phases, each printing its own lines:
      generated 4000x3000 photo and 4096 tile files (needs Pillow): modes
      1 and 4, then `--no-repeat`, `--no-repeat --greedy` and
      `--randomize 10` at mode 16, `--matcher hybrid` and `--metric l2` at
-     mode 4, and `-m random` on a 256x192 photo;
+     mode 4, `--html --web` at mode 1 (the pages, and the assets equal to
+     the package's), `--profile` at mode 4 (the Chrome trace names K1's
+     and K2's kernels; the PNG equals the run without it), and `-m random`
+     on a 256x192 photo;
+  S  the resident service (`emosaic_tpu_torch.serve`) on E's scene: a
+     `MosaicService` at `-m 4 -s 32` behind its HTTP handler in this
+     process, warmed up, takes buffered, tinted and streamed (chunked)
+     requests, a first and 5 warm of each, `/healthz` while a render is in
+     flight, and a stalled streaming client (the card's memory must come
+     back and the next request render); a `-m 16` service takes
+     `no_repeat=1` and `no_repeat=1&greedy=1`; each class's warm request
+     is replayed step by step for its split, and its PNG must equal the
+     replay's (the buffered one `render_nto1` + a PNG encode, the chunked
+     body the buffered image); then `python -m emosaic_tpu_torch.serve
+     ... --warmup 1000x750` as a subprocess answers `/healthz` and a
+     request;
   F  the launch counts of each main path's run (D: K1 and K2; N: K3, K9
-     and K2; H: K3 and K2; L: K4, K9, K5, K6, K7 and K8), which must be
-     > 0.
+     and K2; H: K3 and K2; L: K4, K9, K5, K6, K7 and K8; S: K1 and K2),
+     which must be > 0.
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed. The last lines are one JSON object listing every kernel (with
@@ -1550,33 +1565,100 @@ def phase_e(card) -> None:
             (4, 32, 4, ["--metric", "l2"], 0.9)]
     for mode, size, down, extra, corr_min in runs:
         out = WORK / f"m{mode}.png"
-        cmd = [sys.executable, "-m", "emosaic_tpu_torch.cli", "-s", str(size),
-               "-o", str(out), str(WORK / "photo.jpg"), "mosaic", str(tiles),
-               "-m", str(mode), "--downsample", str(down), *extra, "--device", "cuda"]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=WORK, env=env)
-        secs = time.perf_counter() - t0
-        if proc.returncode != 0:
-            log(proc.stderr[-4000:])
-            raise AssertionError(f"CLI -m {mode} {extra} exited {proc.returncode}")
+        secs, stderr = run_cli(["-s", str(size), "-o", str(out), str(WORK / "photo.jpg"),
+                                "mosaic", str(tiles), "-m", str(mode), "--downsample",
+                                str(down), *extra], env, f"-m {mode} {extra}")
         src = preprocess_source(Image.open(WORK / "photo.jpg"), down, mode)
         with Image.open(out) as im:
             a = np.asarray(im.convert("RGB"))
-        nby, nbx = src.shape[0] // mode, src.shape[1] // mode
-        check(a.shape == (nby * size, nbx * size, 3), f"CLI output shape {a.shape}")
-        bm = a.reshape(nby, size, nbx, size, 3).mean((1, 3))
-        sm = src.reshape(nby, mode, nbx, mode, 3).mean((1, 3))
-        corr = float(np.corrcoef(bm.ravel(), sm.ravel())[0, 1])
+        corr = block_corr(a, src, mode, size)
         check(corr > corr_min, f"CLI -m {mode} {extra}: block-mean correlation {corr:.3f}")
         check(out.with_suffix(".stats.png").exists(), "stats PNG missing")
         out.with_suffix(".stats.png").unlink()
-        timings = [ln.strip() for ln in proc.stderr.splitlines()
+        timings = [ln.strip() for ln in stderr.splitlines()
                    if ln.startswith("   ") and ln.strip().endswith("s")][:8]
         log(f"E CLI -m {mode} -s {size} --downsample {down} {' '.join(extra)}: {secs:.1f} s, "
             f"{a.shape[1]}x{a.shape[0]}, block-mean corr {corr:.4f}; "
             f"{'; '.join(timings)} [{card}]")
         out.unlink()
+    phase_e_html(card, env)
+    phase_e_profile(card, env)
     phase_e_random(card, env)
+
+
+def block_corr(a: np.ndarray, src: np.ndarray, mode: int, size: int) -> float:
+    """Correlation of the mosaic's block means with the source's (the
+    verify recipe's quality gate); checks the mosaic's shape first."""
+    nby, nbx = src.shape[0] // mode, src.shape[1] // mode
+    check(a.shape == (nby * size, nbx * size, 3), f"mosaic shape {a.shape}")
+    bm = a.reshape(nby, size, nbx, size, 3).mean((1, 3))
+    sm = src.reshape(nby, mode, nbx, mode, 3).mean((1, 3))
+    return float(np.corrcoef(bm.ravel(), sm.ravel())[0, 1])
+
+
+def run_cli(args, env, what: str) -> tuple[float, str]:
+    """`python -m emosaic_tpu_torch.cli ARGS --device cuda` in WORK; returns
+    its seconds and its stderr, raises on a non-zero exit."""
+    cmd = [sys.executable, "-m", "emosaic_tpu_torch.cli", *args, "--device", "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=WORK, env=env)
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"CLI {what} exited {proc.returncode}")
+    return time.perf_counter() - t0, proc.stderr
+
+
+def phase_e_html(card, env) -> None:
+    """`--html --web` at mode 1 (a 100x75-block source, -s 16): the main
+    page, the widget and both assets, which equal the package's bytes."""
+    out = WORK / "web.png"
+    secs, _ = run_cli(["-s", "16", "-o", str(out), str(WORK / "photo.jpg"), "mosaic",
+                       str(WORK / "tiles"), "-m", "1", "--downsample", "40", "--html",
+                       "--web"], env, "--html --web")
+    page, widget = WORK / "web.html", WORK / "web_widget.html"
+    check(page.exists() and widget.exists(), "--html --web: a page is missing")
+    html = widget.read_text()
+    check(html.count('class="tile-region"') == 100 * 75, "--web: tile regions")
+    check('data-src="tiles/' in html and "file://" not in html, "--web: tile URLs")
+    assets = ROOT / "emosaic_tpu_torch" / "web" / "assets"
+    for name in ("mosaic-widget.css", "mosaic-widget.js"):
+        check((WORK / name).read_bytes() == (assets / name).read_bytes(),
+              f"--html --web: {name} differs from the package's")
+    log(f"E CLI -m 1 -s 16 --downsample 40 --html --web: {secs:.1f} s; {page.name} "
+        f"{page.stat().st_size / 1e3:.1f} kB, {widget.name} {widget.stat().st_size / 1e6:.2f} "
+        "MB with 7500 tile regions, both assets equal the package's bytes "
+        f"[{card}]")
+    for f in (out, out.with_suffix(".stats.png"), page, widget, WORK / "mosaic-widget.css",
+              WORK / "mosaic-widget.js"):
+        f.unlink()
+
+
+def phase_e_profile(card, env) -> None:
+    """`--profile DIR` at mode 4 (-s 8, downsample 4): the Chrome trace
+    parses and names K1's and K2's kernels, and the PNG equals the same run
+    without `--profile`."""
+    plain, profiled, prof = WORK / "plain.png", WORK / "profiled.png", WORK / "prof"
+
+    def args(out):
+        return ["-s", "8", "-o", str(out), str(WORK / "photo.jpg"), "mosaic",
+                str(WORK / "tiles"), "-m", "4", "--downsample", "4"]
+
+    secs_plain, _ = run_cli(args(plain), env, "-m 4")
+    secs, _ = run_cli(["--profile", str(prof), *args(profiled)], env, "--profile")
+    check(profiled.read_bytes() == plain.read_bytes(), "--profile changed the PNG")
+    traces = list(prof.glob("*.json"))
+    check(len(traces) == 1, f"--profile wrote {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    for part in ("l1_argmin", "compose_kernel"):
+        check(any(part in k for k in kernels), f"--profile: no {part} kernel in the trace")
+    log(f"E CLI -m 4 -s 8 --downsample 4 --profile: {secs:.1f} s (without: {secs_plain:.1f} s); "
+        f"trace {traces[0].stat().st_size / 1e6:.1f} MB, {len(events)} events, "
+        f"{len(kernels)} kernel launches, K1 and K2 among them; PNG equal [{card}]")
+    shutil.rmtree(prof)
+    for f in (plain, profiled, plain.with_suffix(".stats.png"),
+              profiled.with_suffix(".stats.png")):
+        f.unlink()
 
 
 def phase_e_random(card, env) -> None:
@@ -1591,15 +1673,8 @@ def phase_e_random(card, env) -> None:
     with Image.open(WORK / "photo.jpg") as im:
         im.resize((256, 192)).save(WORK / "small.png")
     out, tiles = WORK / "random.png", WORK / "tiles"
-    cmd = [sys.executable, "-m", "emosaic_tpu_torch.cli", "-s", "16", "-o", str(out),
-           str(WORK / "small.png"), "mosaic", str(tiles), "-m", "random", "--seed", "7",
-           "--device", "cuda"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=WORK, env=env)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        log(proc.stderr[-4000:])
-        raise AssertionError(f"CLI -m random exited {proc.returncode}")
+    secs, _ = run_cli(["-s", "16", "-o", str(out), str(WORK / "small.png"), "mosaic",
+                       str(tiles), "-m", "random", "--seed", "7"], env, "-m random")
     with Image.open(out) as im:
         a = np.asarray(im.convert("RGB"))
     check(a.shape == (192 * 16, 256 * 16, 3), f"random output {a.shape}")
@@ -1614,6 +1689,393 @@ def phase_e_random(card, env) -> None:
     log(f"E CLI -m random -s 16 on a 256x192 photo: {secs:.1f} s, {a.shape[1]}x{a.shape[0]}, "
         f"24 sampled blocks equal the prepared tiles of the seeded items [{card}]")
     out.unlink()
+
+
+# ---------------------------------------------------------------------------
+# S
+# ---------------------------------------------------------------------------
+
+
+def _quiet(*a):
+    pass
+
+
+def http(base: str, query: str = "", data: bytes | None = None, path: str = "/mosaic",
+         timeout: float = 600) -> tuple[int, dict, bytes]:
+    """(status, headers, body) of one GET (no data) or POST; the body of a
+    chunked response comes de-chunked. An HTTP error status raises."""
+    import urllib.request
+
+    req = urllib.request.Request(f"{base}{path}{query}", data=data,
+                                 method="GET" if data is None else "POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, dict(r.headers), r.read()
+
+
+def serving(handler):
+    """Context: a ThreadingHTTPServer on 127.0.0.1, an ephemeral port, with
+    `handler`; yields (base URL, port) and stops the server after."""
+    import contextlib
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    @contextlib.contextmanager
+    def ctx():
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        try:
+            yield f"http://127.0.0.1:{httpd.server_address[1]}", httpd.server_address[1]
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            th.join(timeout=30)
+
+    return ctx()
+
+
+def timed_class(base: str, body: bytes, query: str, what: str, card: str,
+                n_warm: int = 5) -> tuple[bytes, dict]:
+    """One request class: a first request, then `n_warm` more; prints the
+    first time and the warm median; returns the first response's body and
+    headers."""
+    times, first = [], None
+    for _ in range(1 + n_warm):
+        t0 = time.perf_counter()
+        status, headers, data = http(base, query, body)
+        times.append(time.perf_counter() - t0)
+        check(status == 200 and headers["Content-Type"] == "image/png", f"S {what}: {status}")
+        first = first or (data, headers)
+    warm = sorted(times[1:])
+    log(f"S {what}: first request {times[0]:.3f} s, warm median {warm[len(warm) // 2]:.3f} s "
+        f"(min {warm[0]:.3f}, max {warm[-1]:.3f}) of {n_warm}; {len(first[0]) / 1e6:.1f} MB "
+        f"[{card}]")
+    return first
+
+
+def replay_split(torch, svc, body: bytes, card: str, what: str, *, downsample: int,
+                 tint: float = 0.0, no_repeat: bool = False, greedy: bool = False,
+                 stream: bool = False):
+    """A warm request's work replayed step by step on the service's state,
+    each step ending in a synchronize: decode + preprocess, the match or
+    the scoring and assignment, the stack upload, the composite, the tint
+    and the PNG encode. Prints the split; returns (PNG bytes, the image or
+    None when streamed)."""
+    import io
+
+    from PIL import Image
+
+    from emosaic_tpu_torch.cli import preprocess_source
+    from emosaic_tpu_torch.io.codecs import StreamingPNGWriter
+    from emosaic_tpu_torch.ops import composite
+    from emosaic_tpu_torch.render.matched import render_nto1
+    from emosaic_tpu_torch.render.norepeat import render_nto1_no_repeat
+
+    dev, ts = svc.device, svc.tile_size
+    split = {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        split[name] = time.perf_counter() - t0
+        return out
+
+    def decode():
+        original = Image.open(io.BytesIO(body))
+        src = preprocess_source(original, downsample, svc.dim)
+        rgb = np.asarray(original.convert("RGB"), dtype=np.uint8) if tint else None
+        return src, rgb
+
+    src, rgb = step("decode + preprocess", decode)
+    if no_repeat and not greedy:
+        out = step("score + assign + stats", lambda: render_nto1_no_repeat(
+            src, svc.tile_set, ts, device=dev, stack=svc.stack, compose=False, log=_quiet))
+        split["  of it scoring"] = out.info["scoring_s"]
+        split["  of it assignment"] = out.info["assign_s"]
+    else:
+        name = "top-k + greedy + stats" if no_repeat else "match + stats"
+        out = step(name, lambda: render_nto1(
+            src, svc.tile_set, ts, no_repeat=no_repeat, device=dev, stack=svc.stack,
+            compose=False, log=_quiet))
+    nby, nbx = out.items.shape
+    if stream:
+        def encode_stream():
+            buf = io.BytesIO()
+            with StreamingPNGWriter(buf, nbx * ts, nby * ts) as w:
+                for band in composite.stream_tinted_bands(
+                        out.items, out.tile_set, svc.stack, ts, original_rgb=rgb,
+                        tint_opacity=tint, device=dev):
+                    w.write_band(band)
+            return buf.getvalue()
+
+        png, image = step("stack upload + compose + tint + streamed PNG encode",
+                          encode_stream), None
+    else:
+        aug = step("stack upload + augment", lambda: composite.augment_stack2d(
+            svc.stack, device=dev)[0])
+        image = step("compose (K2) + copy to host", lambda: composite.compose_rows(
+            torch.as_tensor(out.items, device=dev), aug).cpu().numpy().reshape(
+                nby * ts, nbx * ts, 3))
+        del aug
+        if tint:
+            image = step("tint", lambda: composite.tint_blend(image, rgb, tint, device=dev))
+
+        def encode():
+            buf = io.BytesIO()
+            Image.fromarray(image).save(buf, "PNG")
+            return buf.getvalue()
+
+        png = step("PNG encode", encode)
+    total = sum(v for k, v in split.items() if not k.startswith(" "))
+    log(f"S {what}, split of a warm request (replayed): "
+        + "; ".join(f"{k.strip()} {v:.3f} s" for k, v in split.items())
+        + f"; sum {total:.3f} s [{card}]")
+    return png, image
+
+
+def start_serve(env, args) -> tuple[subprocess.Popen, int]:
+    """`python -m emosaic_tpu_torch.serve ARGS` in WORK; returns the process
+    and its port once it prints its "serving on" line. Its stderr is then
+    drained by a thread so its logging cannot block it."""
+    import re
+    import threading
+
+    proc = subprocess.Popen([sys.executable, "-m", "emosaic_tpu_torch.serve", *args],
+                            cwd=WORK, env=env, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    lines = []
+    for line in proc.stderr:
+        lines.append(line)
+        m = re.search(r"serving on http://127\.0\.0\.1:(\d+)", line)
+        if m:
+            threading.Thread(target=proc.stderr.read, daemon=True).start()
+            return proc, int(m.group(1))
+    proc.wait(timeout=60)
+    log("".join(lines)[-4000:])
+    raise AssertionError(f"the serve process exited {proc.returncode} before serving")
+
+
+def stop_serve(proc) -> None:
+    import signal
+
+    proc.send_signal(signal.SIGINT)  # KeyboardInterrupt: serve_forever returns
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=60)
+        raise AssertionError("the serve process did not stop on SIGINT")
+    check(proc.returncode == 0, f"the serve process exited {proc.returncode}")
+
+
+def stalled_stream(torch, svc, body: bytes, card: str) -> None:
+    """A client that stops reading a streamed response: the spool fills,
+    the producer aborts after its 0.5 s stall, the socket write dies at
+    the 3 s deadline; the card's memory returns to its level before the
+    request and the next request renders."""
+    import socket
+    import threading
+
+    from emosaic_tpu_torch.serve import _make_handler
+
+    aborted, lost = threading.Event(), threading.Event()
+
+    def watch(msg, *a):
+        if "stream aborted" in msg:
+            aborted.set()
+        if "stream client lost" in msg:
+            lost.set()
+
+    handler = _make_handler(svc, stream_threshold=1 << 20, spool_bytes=4096,
+                            spool_stall_secs=0.5, io_timeout=3.0)
+    svc.log = watch
+    with serving(handler) as (base, port):
+        http(base, "?downsample=4", body)  # a whole streamed response first
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 4096)
+        s.settimeout(60)
+        s.connect(("127.0.0.1", port))
+        t0 = time.perf_counter()
+        s.sendall(b"POST /mosaic?downsample=4 HTTP/1.1\r\nHost: x\r\n"
+                  b"Content-Length: %d\r\n\r\n" % len(body) + body)
+        # parked, not reading, until the producer has aborted and the
+        # blocked socket write has hit its deadline
+        check(aborted.wait(120) and lost.wait(120), "stalled stream: no abort")
+        data = b""
+        while True:
+            got = s.recv(1 << 20)
+            if not got:
+                break
+            data += got
+        s.close()
+        secs = time.perf_counter() - t0
+        check(data.startswith(b"HTTP/1.1 200"), "stalled stream: no 200")
+        check(not data.endswith(b"0\r\n\r\n"), "stalled stream completed")
+        after = torch.cuda.memory_allocated()
+        for _ in range(50):  # the handler thread returns just after the close
+            if after <= before:
+                break
+            time.sleep(0.1)
+            after = torch.cuda.memory_allocated()
+        check(after <= before, f"stalled stream kept {after - before} bytes on the card")
+        held = torch.cuda.max_memory_allocated() - before
+        check(held > 0, "stalled stream: the request held nothing on the card")
+        status, _, png = http(base, "?downsample=4", body)
+        check(status == 200 and png[:8] == b"\x89PNG\r\n\x1a\n", "no render after the abort")
+    svc.log = _quiet
+    log(f"S stalled stream: {len(data) / 1e6:.1f} MB received before the server closed it "
+        f"{secs:.1f} s after the request (truncated); device memory {before} bytes before, "
+        f"{held / 1e6:.1f} MB more at its peak, {after} after; the next request rendered "
+        f"[{card}]")
+
+
+def phase_s(torch, card) -> dict:
+    """The resident service (`emosaic_tpu_torch.serve`) on phase E's 4096
+    tile files and 4000x3000 photo, in this process behind its HTTP
+    handler, then as `python -m emosaic_tpu_torch.serve`."""
+    import io
+    import threading
+
+    from PIL import Image
+
+    from emosaic_tpu_torch.cli import preprocess_source
+    from emosaic_tpu_torch.ops import composite
+    from emosaic_tpu_torch.ops._kernels import KERNELS
+    from emosaic_tpu_torch.render.matched import render_nto1
+    from emosaic_tpu_torch.serve import MosaicService, _make_handler
+
+    os.environ["XDG_CACHE_HOME"] = str(WORK / "xdg")  # phase E's caches
+    body = (WORK / "photo.jpg").read_bytes()
+    with Image.open(WORK / "photo.jpg") as im:
+        src4 = preprocess_source(im, 4, 4)
+        src4_16 = preprocess_source(im, 16, 4)
+        src16 = preprocess_source(im, 4, 16)
+        photo = np.asarray(im.convert("RGB"))
+    t0 = time.perf_counter()
+    svc = MosaicService(WORK / "tiles", "4", 32, device="cuda", log=_quiet)
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    svc.warmup(1000, 750)
+    log(f"S service -m 4 -s 32: {len(svc.tile_set)} tiles, ready in {t_init:.2f} s, warmup "
+        f"1000x750 (kernel build, native engine, one request) {time.perf_counter() - t0:.2f} s "
+        f"[{card}]")
+    svc16 = MosaicService(WORK / "tiles", "16", 32, device="cuda", log=_quiet)
+    svc16.warmup(1000, 750, no_repeat=True)
+
+    for k in KERNELS:
+        k.launches = 0
+    with _no_fallback():
+        with serving(_make_handler(svc)) as (base, _):
+            status, _, health = http(base, path="/healthz")
+            check(json.loads(health) == {"status": "ok", "tiles": 4096, "mode": "4",
+                                         "tile_size": 32}, f"S /healthz {health}")
+            buffered, _ = timed_class(base, body, "?downsample=4", "buffered -m 4 -s 32 "
+                                      "--downsample 4 (8000x5984)", card)
+            # the tinted class at downsample 16 (2000x1496): a tinted PNG
+            # compresses worse, and Pillow's single-threaded encode of one at
+            # downsample 4 would take much of the phase's time
+            tinted, _ = timed_class(base, body, "?downsample=16&tint=0.3",
+                                    "tinted 0.3 at downsample 16 (2000x1496)", card)
+            # /healthz while a render is in flight
+            entered, release = threading.Event(), threading.Event()
+            real = svc.render_plan
+
+            def held(*a, **k):
+                entered.set()
+                check(release.wait(60), "S: the in-flight render was never released")
+                return real(*a, **k)
+
+            svc.render_plan = held
+            result = {}
+            th = threading.Thread(target=lambda: result.update(
+                r=http(base, "?downsample=16&tint=0.3", body)), daemon=True)
+            th.start()
+            check(entered.wait(60), "S: the render never started")
+            t0 = time.perf_counter()
+            status, _, health = http(base, path="/healthz", timeout=10)
+            t_health = time.perf_counter() - t0
+            check(status == 200 and "r" not in result, "S: /healthz not answered in flight")
+            release.set()
+            th.join(timeout=300)
+            del svc.render_plan
+            check(not th.is_alive() and result["r"][2] == tinted,
+                  "S: the in-flight render's PNG differs")
+            log(f"S /healthz answered in {1e3 * t_health:.1f} ms while a render was in "
+                f"flight [{card}]")
+        with serving(_make_handler(svc, stream_threshold=1 << 20)) as (base, _):
+            streamed, headers = timed_class(base, body, "?downsample=4",
+                                            "streamed (chunked), same shape", card)
+            check(headers.get("Transfer-Encoding") == "chunked", "S: not chunked")
+        stalled_stream(torch, svc, body, card)
+        with serving(_make_handler(svc16)) as (base, _):
+            nr, _ = timed_class(base, body, "?downsample=4&no_repeat=1",
+                                "no_repeat -m 16 -s 32 --downsample 4", card)
+            nrg, _ = timed_class(base, body, "?downsample=4&no_repeat=1&greedy=1",
+                                 "no_repeat + greedy, same shape", card)
+    launches = {k.name: k.launches for k in KERNELS}
+    log(f"S launches inside the service: {launches}")
+    for name in ("l1_argmin", "compose"):
+        check(launches[name] > 0, f"S: {name} was not launched by the service")
+    log("S scorer kernels reached by the no-repeat requests: "
+        + (", ".join(f"{n} {launches[n]}" for n in ("l1_rows", "coarse_topcap", "seg_topcap")
+                     if launches[n]) or "none"))
+
+    # outputs: the service's PNGs against the same work in this process
+    png, image = replay_split(torch, svc, body, card, "buffered", downsample=4)
+    ref = render_nto1(src4, svc.tile_set, 32, device=svc.device, stack=svc.stack,
+                      log=_quiet).image
+    check(np.array_equal(image, ref), "S: the replay's image != render_nto1's")
+    check(buffered == png, "S: buffered PNG != render_nto1 + PNG encode")
+    corr = block_corr(image, src4, 4, 32)
+    check(corr > 0.9, f"S buffered: block-mean correlation {corr:.3f}")
+    png_t, image_t = replay_split(torch, svc, body, card, "tinted", downsample=16, tint=0.3)
+    check(tinted == png_t, "S: tinted PNG != the replay's")
+    ref16 = render_nto1(src4_16, svc.tile_set, 32, device=svc.device, stack=svc.stack,
+                        log=_quiet).image
+    check(np.array_equal(image_t, composite.tint_blend(ref16, photo, 0.3, device=svc.device)),
+          "S: tinted image != tint_blend of render_nto1's")
+    png_s, _ = replay_split(torch, svc, body, card, "streamed", downsample=4, stream=True)
+    check(streamed == png_s, "S: streamed PNG != the replay's")
+    with Image.open(io.BytesIO(streamed)) as im:
+        check(np.array_equal(np.asarray(im.convert("RGB")), image),
+              "S: chunked body != buffered image")
+    png_nr, image_nr = replay_split(torch, svc16, body, card, "no_repeat", downsample=4,
+                                    no_repeat=True)
+    png_g, image_g = replay_split(torch, svc16, body, card, "no_repeat + greedy",
+                                  downsample=4, no_repeat=True, greedy=True)
+    check(nr == png_nr and nrg == png_g, "S: a no-repeat PNG != the replay's")
+    corrs = [block_corr(img, src16, 16, 32) for img in (image_nr, image_g)]
+    check(min(corrs) > 0.8, f"S no-repeat: block-mean correlations {corrs}")
+    log(f"S outputs: buffered PNG == render_nto1 + PNG encode (block-mean corr {corr:.4f}); "
+        "tinted == tint_blend of it; the chunked body decodes to the buffered image; "
+        f"no_repeat and greedy equal their replays (corr {corrs[0]:.4f}, {corrs[1]:.4f}) "
+        f"[{card}]")
+
+    # the entry point a user runs
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [
+        str(ROOT), os.environ.get("PYTHONPATH")])))
+    t0 = time.perf_counter()
+    proc, port = start_serve(env, [str(WORK / "tiles"), "-m", "4", "-s", "32", "--device",
+                                   "cuda", "--port", "0", "--warmup", "1000x750"])
+    t_up = time.perf_counter() - t0
+    try:
+        base = f"http://127.0.0.1:{port}"
+        status, _, health = http(base, path="/healthz")
+        check(status == 200 and json.loads(health)["tiles"] == 4096, "S subprocess /healthz")
+        t0 = time.perf_counter()
+        status, _, got = http(base, "?downsample=16&tint=0.3", body)
+        t_req = time.perf_counter() - t0
+        check(status == 200 and got == tinted, "S subprocess: PNG != the in-process one")
+    finally:
+        stop_serve(proc)
+    log(f"S python -m emosaic_tpu_torch.serve ... --warmup 1000x750: serving after "
+        f"{t_up:.1f} s (start, warmup); first request (tinted, downsample 16) {t_req:.3f} s, "
+        f"PNG equal to the in-process service's; stopped by SIGINT [{card}]")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1664,10 +2126,13 @@ def main() -> int:
         launches_h = h["launches"]
         log("== E. the CLI")
         phase_e(card)
+        log("== S. the resident service")
+        launches_s = phase_s(torch, card)
         log("== F. counters")
         for path, counts, names in [("D", launches_d, ("l1_argmin", "compose")),
                                     ("N", launches_n, ("l1_rows", "coarse_topcap", "compose")),
                                     ("H", launches_h, ("l1_rows", "compose")),
+                                    ("S", launches_s, ("l1_argmin", "compose")),
                                     ("L", launches_l, ("seg_topcap", "coarse_topcap",
                                                        "floor_write", "compose_bulk",
                                                        "compose_bulk2", "band_transpose"))]:
@@ -1692,7 +2157,7 @@ def main() -> int:
         rows.append({
             "name": k.name, "route": "cuda",
             "source": str(k.source.relative_to(ROOT)), "replaces": replaces,
-            "launches": launches[k.name], **res,
+            "launches": launches[k.name], "launches_s": launches_s[k.name], **res,
         })
     rows[1]["also_replaces"] = "emosaic_tpu/ops/composite.py:82"
     rows[2]["also_replaces"] = "tools/tpu_r19_flatdma.py:48"

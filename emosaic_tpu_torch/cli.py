@@ -8,11 +8,12 @@ The parser is the JAX package's, flag for flag, plus `--device`. The
 matched route (with `--randomize`, `--no-repeat --greedy`, `--matcher
 {auto,lut,pallas,xla,hybrid}` and `--metric {l1,l2}`), the global
 no-repeat route (`--no-repeat`, also with `--matcher hybrid`), `-m
-random`, the tint route, the banded PNG route and the stats PNG run here;
-the flags of routes not ported yet raise NotImplementedError naming their
-ROADMAP item. Parity quirks kept: the output is always PNG-encoded
-(main.rs:482-483) and the tint path returns before the stats
-(main.rs:477).
+random`, the tint route, the banded PNG route, the stats PNG, `--html` /
+`--web` and `--profile` (on torch.profiler) run here; `--mesh` and
+`EMOSAIC_DISTRIBUTED` raise NotImplementedError naming their ROADMAP
+item. Parity quirks kept: the output is always PNG-encoded
+(main.rs:482-483) and the tint path returns before the stats and the
+HTML (main.rs:477).
 """
 
 from __future__ import annotations
@@ -190,8 +191,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--profile",
         metavar="DIR",
         default=None,
-        help="Capture a profiler trace of the run into DIR (not ported "
-        "yet: raises)",
+        help="Capture a torch.profiler trace of the run (host activity, and "
+        "the card's with --device cuda) into DIR as a Chrome trace",
     )
     p.add_argument(
         "--fast-prep",
@@ -376,16 +377,14 @@ def _refuse_unported(args) -> None:
     """Raise NotImplementedError for every flag whose route is not ported,
     naming its ROADMAP item, instead of ignoring it."""
     checks = [
-        (args.profile, "--profile", "--profile (torch.profiler)"),
         (os.environ.get("EMOSAIC_DISTRIBUTED"), "EMOSAIC_DISTRIBUTED",
          "parallel/ -> torch.distributed"),
     ]
     if args.subcmd == "mosaic":
-        checks += [
+        checks.append(
             (args.mesh.strip().lower() != "off", f"--mesh {args.mesh}",
-             "parallel/ -> torch.distributed"),
-            (args.html or args.web, "--html/--web", "web/"),
-        ]
+             "parallel/ -> torch.distributed")
+        )
     for hit, flag, item in checks:
         if hit:
             raise NotImplementedError(
@@ -661,9 +660,9 @@ def run_mosaic(args, timer=None) -> None:
             ):
                 w.write_band(band)
         if args.tint_opacity > 0.0:
-            return  # tint path skips stats (main.rs:477 quirk)
+            return  # tint path skips stats/HTML (main.rs:477 quirk)
     elif args.tint_opacity > 0.0:
-        # tint path: blend, save, early return — skips stats
+        # tint path: blend, save, early return — skips stats/HTML
         # (main.rs:447-478 quirk preserved)
         blended = tint_blend(output, original_rgb, args.tint_opacity, device=device)
         Image.fromarray(blended).save(out_path, format="PNG")
@@ -673,9 +672,16 @@ def run_mosaic(args, timer=None) -> None:
         log(f"📝 Writing output file to {out_path}")
         Image.fromarray(output).save(out_path, format="PNG")
 
-    if stats is None:
-        pass  # random mode records no stats
-    elif stats.tile_count():
+    # random mode records no stats (stats is None)
+    have_stats = stats is not None and stats.tile_count()
+    if (stats is not None and not stats.tile_count()) and (
+        args.stats_json or args.html or args.web
+    ):
+        # zero placements (e.g. a fully-starved assignment): stats.render
+        # and the HTML generator would raise; say why the artifacts are
+        # skipped instead of silently dropping or crashing
+        log("⚠️  No tiles recorded in statistics; skipping stats/HTML outputs")
+    if have_stats:
         stats_path = out_path.with_suffix(".stats.png")
         log(f"📊 Writing statistics visualization to {stats_path}")
         try:
@@ -695,10 +701,33 @@ def run_mosaic(args, timer=None) -> None:
                 log(f"📊 Statistics JSON saved to {args.stats_json}")
             except OSError as e:  # non-fatal, like the image save
                 log(f"⚠️  Failed to save statistics JSON: {e}")
-    elif args.stats_json:
-        log("⚠️  No tiles recorded in statistics; skipping stats outputs")
+
+    if have_stats and (args.html or args.web):
+        from emosaic_tpu_torch.web import generate_html_with_options
+
+        html_path = out_path.with_suffix(".html")
+        log(f"📄 Generating interactive HTML at {html_path}")
+        generate_html_with_options(
+            stats, out_path, html_path, tile_set_out, config, web=args.web
+        )
+        log("📄 Interactive HTML file saved (hover over tiles for details)")
 
     log(f"🎉 All done! Your mosaic is ready at {out_path}")
+
+
+def _start_profiler(args):
+    """Start torch.profiler for `--profile DIR`: host activity always, the
+    card's when the run's device is cuda (CUPTI sees the hand-written
+    kernels launched through ctypes as well)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    Path(args.profile).mkdir(parents=True, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if getattr(args, "device", None) == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
 
 
 def main(argv=None) -> int:
@@ -717,11 +746,20 @@ def main(argv=None) -> int:
             # path helper see the same mode; restored on exit
             os.environ["EMOSAIC_FAST_PREP"] = "1"
         cache_dir().mkdir(parents=True, exist_ok=True)
-        if args.subcmd == "prepare":
-            run_prepare(args)
-        elif args.subcmd == "mosaic":
-            run_mosaic(args, timer=timer)
-        # no subcommand: validate-only, like the reference's `None => ()`
+        profiler = _start_profiler(args) if args.profile else None
+        try:
+            if args.subcmd == "prepare":
+                run_prepare(args)
+            elif args.subcmd == "mosaic":
+                run_mosaic(args, timer=timer)
+            # no subcommand: validate-only, like the reference's `None => ()`
+        finally:
+            if profiler is not None:
+                profiler.stop()
+                profiler.export_chrome_trace(
+                    str(Path(args.profile) / f"emosaic_{os.getpid()}.pt.trace.json")
+                )
+                log(f"🔬 Profiler trace written to {args.profile}")
         return 0
     finally:
         if prev_fast is None:

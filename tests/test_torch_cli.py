@@ -189,15 +189,7 @@ def test_device_defaults_to_cuda():
     assert args.device == "cuda"
 
 
-@pytest.mark.parametrize(
-    "pre,post",
-    [
-        ([], ["--mesh", "auto"]),
-        ([], ["--html"]),
-        ([], ["--web"]),
-        (["--profile", "prof"], []),
-    ],
-)
+@pytest.mark.parametrize("pre,post", [([], ["--mesh", "auto"])])
 def test_unported_flags_raise(scene, monkeypatch, pre, post):
     monkeypatch.chdir(scene)
     argv = [*pre, "-s", "16", "source.png", "mosaic", "tiles", *post, "--device", "cpu"]
@@ -222,14 +214,28 @@ def test_distributed_env_raises(scene, monkeypatch):
         cli.main(["-s", "16", "source.png", "mosaic", "tiles", "--device", "cpu"])
 
 
+def _package_data(pkg: str) -> tuple[list, set]:
+    """(every non-Python file under `pkg`'s directory, those that the
+    package-data patterns of `pyproject.toml` ship)."""
+    import tomllib
+
+    data = tomllib.loads((ROOT / "pyproject.toml").read_text())["tool"]["setuptools"][
+        "package-data"]
+    base = ROOT / pkg.replace(".", "/")
+    files = sorted(p for p in base.rglob("*")
+                   if p.is_file() and "__pycache__" not in p.parts and p.suffix != ".py")
+    return files, {p for pat in data.get(pkg, []) for p in base.glob(pat)}
+
+
 def test_packaging_names_the_port():
-    """`pyproject.toml`: the `torch` extra and the port's console script,
-    beside the JAX package's dependencies and scripts."""
+    """`pyproject.toml`: the `torch` extra and the port's console scripts,
+    beside the JAX package's dependencies and scripts; every file under
+    `csrc/` (the kernels, the C++ engine and the `.cuh` header that K4 and
+    K9 include) ships, so an installed port can build its kernels."""
     import importlib
     import tomllib
 
-    proj = tomllib.loads((Path(__file__).resolve().parents[1] / "pyproject.toml")
-                         .read_text())["project"]
+    proj = tomllib.loads((ROOT / "pyproject.toml").read_text())["project"]
     assert proj["dependencies"] == ["jax", "numpy", "Pillow"]
     assert proj["optional-dependencies"]["torch"] == ["torch", "numpy", "Pillow"]
     target = proj["scripts"]["emosaic-tpu-torch"]
@@ -237,3 +243,18 @@ def test_packaging_names_the_port():
     mod, fn = target.split(":")
     assert getattr(importlib.import_module(mod), fn) is cli.main
     assert proj["scripts"]["emosaic-tpu"] == "emosaic_tpu.cli:main"
+    assert proj["scripts"]["emosaic-tpu-serve"] == "emosaic_tpu.serve:main"
+    target = proj["scripts"]["emosaic-tpu-torch-serve"]
+    assert target == "emosaic_tpu_torch.serve:main"
+    mod, fn = target.split(":")
+    assert callable(getattr(importlib.import_module(mod), fn))
+    files, shipped = _package_data("emosaic_tpu_torch")
+    csrc = [p for p in files if p.parent == ROOT / "emosaic_tpu_torch/csrc"]
+    assert {p.suffix for p in csrc} == {".cu", ".cuh", ".cpp"}
+    assert [p.name for p in csrc if p not in shipped] == []
+
+
+@pytest.mark.parametrize("pkg", ["emosaic_tpu_torch.web", "emosaic_tpu_torch.aws"])
+def test_packaging_ships_the_web_and_aws_files(pkg):
+    files, shipped = _package_data(pkg)
+    assert files and [p for p in files if p not in shipped] == []
