@@ -75,12 +75,29 @@ Run from the root of a checkout. Phases, each printing its own lines:
      body the buffered image); then `python -m emosaic_tpu_torch.serve
      ... --warmup 1000x750` as a subprocess answers `/healthz` and a
      request;
+  P  `parallel/` on virtual meshes of the one card (eight positions on
+     cuda:0), each sharded route byte-equal to the single-device route on
+     the same inputs, with both times: P1 `sharded_l1_argmin` (4x2) and
+     P2 `sharded_l1_argmin_ring` (n = 8) at phase D's mode-4 shape with
+     planted cross-shard ties, P3 `sharded_l1_topk_adaptive` (1x8) at the
+     flagship no-repeat shape (every row certified, the adaptive route), P4
+     `sharded_l1_topk` (4x2, D = 48), P5 `sharded_build_l1_lut` (n = 8)
+     from phase D's mode-1 library, P6 `sharded_mosaic_step` (4x2) on phase
+     D's mode-4 scene against `render_nto1`'s image, P7 `render_nto1(mesh=)`
+     at mode 4 and `render_nto1_no_repeat(mesh=)` at the flagship (their
+     item grids); P8 the CLI on two processes sharing cuda:0
+     (EMOSAIC_DISTRIBUTED, `--mesh 2`, host-staged gloo) at `-m 4` and
+     `-m 16 --no-repeat` on phase E's scene, rank 0's PNG equal to a
+     single-process run's and rank 1 standing down; P9 an NCCL world of
+     one process carrying `sharded_l1_argmin`'s exchange. A virtual mesh
+     measures the shard plumbing's overhead, not a multi-GPU speedup;
   F  the launch counts of each main path's run (D: K1 and K2; N: K3, K9
-     and K2; H: K3 and K2; L: K4, K9, K5, K6, K7 and K8; S: K1 and K2),
-     which must be > 0.
+     and K2; H: K3 and K2; L: K4, K9, K5, K6, K7 and K8; S: K1 and K2; P:
+     K1, K2, K3 and K9), which must be > 0.
 
-Any failed check raises, so the exit code is non-zero and no result line
-is printed. The last lines are one JSON object listing every kernel (with
+Phases run in the order A, B, C, D, N, L, H, E, S, P (P's CLI runs reuse
+E's scene and caches), then F. Any failed check raises, so the exit code
+is non-zero and no result line is printed. The last lines are one JSON object listing every kernel (with
 its launches, error, times and bound), the card's name and power limit,
 and `{"ok": true, "device": {...}}`.
 
@@ -1144,7 +1161,10 @@ def phase_d(torch, gen, dev, card) -> dict:
         f"{out_png.stat().st_size / 1e6:.1f} MB, rows {rows} equal the reference "
         "composite + tint")
     out_png.unlink()
-    return launches
+    # phase P's inputs, on the host: the two libraries' palettes, the
+    # mode-4 tiles and source, and the mode-4 items
+    return {"launches": launches, "pal1": pal1, "pal4": pal4, "stack16": stack16_h,
+            "src4": src4, "items4": res4.items}
 
 
 # ---------------------------------------------------------------------------
@@ -1526,14 +1546,283 @@ def phase_h(torch, gen, dev, card, t_tiles=100000, side4=2048, t=32767, side_n=4
 
 
 # ---------------------------------------------------------------------------
+# P
+# ---------------------------------------------------------------------------
+
+
+def wall(torch, fn, reps: int = 2):
+    """fn()'s result from a first run, and the host seconds of `reps` more
+    runs (each ends in a synchronize): the time a caller of a route that
+    returns host arrays waits."""
+    out = fn()
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return out, secs
+
+
+def phase_p(torch, gen, dev, card, scene, t_flag=32767, side_flag=4096) -> dict:
+    """`parallel/` at full width on virtual meshes of the one card (eight
+    positions on cuda:0): each sharded route against the single-device
+    route on the same inputs, byte for byte, with both times. A virtual
+    mesh measures the shard plumbing's overhead, not a multi-GPU speedup."""
+    from emosaic_tpu_torch.ops import distance, lut
+    from emosaic_tpu_torch.ops._kernels import KERNELS
+    from emosaic_tpu_torch.ops.analysis import source_blocks
+    from emosaic_tpu_torch.parallel import (
+        make_mesh,
+        sharded_build_l1_lut,
+        sharded_l1_argmin,
+        sharded_l1_argmin_ring,
+        sharded_l1_topk,
+        sharded_l1_topk_adaptive,
+        sharded_mosaic_step,
+    )
+    from emosaic_tpu_torch.render.matched import render_nto1
+    from emosaic_tpu_torch.render.norepeat import render_nto1_no_repeat
+    from emosaic_tpu_torch.tiles.tileset import TileSet
+
+    t_all = time.perf_counter()
+    host = lambda pair: tuple(x.cpu().numpy() for x in pair)  # noqa: E731
+    mesh42 = make_mesh(8, model=2, devices=[dev] * 8)
+    mesh18 = make_mesh(8, model=8, devices=[dev] * 8)
+    mesh8 = make_mesh(8, devices=[dev] * 8)
+    log(f"P meshes: {mesh42.shape}, {mesh18.shape}, {mesh8.shape}, every position on {dev}")
+    t_tiles = scene["pal4"].shape[0]
+    paths = [f"synthetic/{i:06d}.jpg" for i in range(t_tiles)]
+    ts4 = TileSet.from_arrays(scene["pal4"], paths)
+    stack16 = torch.as_tensor(scene["stack16"], device=dev)
+    blocks4 = source_blocks(scene["src4"], 4, device=dev)
+    lib4 = distance.build_library(torch.as_tensor(scene["pal4"], device=dev))
+    # P1/P2 inputs: ties across library shards (4x2: rows >= 100000 are
+    # shard 1; the ring's shards are 25000 rows) and across block shards
+    lib_t, blocks_t = lib4.clone(), blocks4.clone()
+    lib_t[3 * lib_t.shape[0] // 4] = lib_t[7]
+    lib_t[-1] = lib_t[7]
+    blocks_t[3] = lib_t[7]
+    blocks_t[3 * blocks_t.shape[0] // 4] = lib_t[7]
+    lib1 = distance.build_library(torch.as_tensor(scene["pal1"], device=dev))
+    b4k, l4k = blocks4[:16384], lib4[:65534]
+    pal_f, src_f, ts_f, stack_f = flagship_scene(torch, gen, dev, t_flag, side_flag)
+    blocks_f = source_blocks(src_f, FLAGSHIP_DIM, device=dev)
+    lib_f = distance.build_library(pal_f)
+    torch.cuda.synchronize()
+    log(f"P set-up: phase D's scene ({t_tiles} tiles), the flagship scene in "
+        f"{time.perf_counter() - t_all:.3f} s")
+
+    # the single-device routes first, so the launch counts below are the
+    # sharded routes' alone
+    ref, single = {}, {}
+    ref["P1"], single["P1"] = wall(torch, lambda: host(distance.l1_argmin(blocks_t, lib_t)))
+    ref["P3"], single["P3"] = wall(
+        torch, lambda: distance.l1_topk_adaptive(blocks_f, lib_f, 512))
+    ref["P4"], single["P4"] = wall(torch, lambda: distance.l1_topk_stripes(b4k, l4k, 512))
+    ref["P5"], single["P5"] = wall(torch, lambda: lut._build(lib1.cpu().numpy(), dev).cpu().numpy())
+    ref["P6"], single["P6"] = wall(torch, lambda: render_nto1(
+        scene["src4"], ts4, 16, device=dev, stack=stack16, log=_quiet).image, reps=1)
+    _, single["P7 mode 4"] = wall(torch, lambda: render_nto1(
+        scene["src4"], ts4, 16, device=dev, compose=False, log=_quiet), reps=1)
+    ref["P7 flagship"], single["P7 flagship"] = wall(torch, lambda: render_nto1_no_repeat(
+        src_f, ts_f, FLAGSHIP_DIM, device=dev, compose=False, log=_quiet).items, reps=1)
+
+    for k in KERNELS:
+        k.launches = 0
+    got, sharded, st3 = {}, {}, {}
+    with _no_fallback():
+        got["P1"], sharded["P1"] = wall(torch, lambda: sharded_l1_argmin(blocks_t, lib_t, mesh42))
+        got["P2"], sharded["P2"] = wall(
+            torch, lambda: sharded_l1_argmin_ring(blocks_t, lib_t, mesh8))
+        got["P3"], sharded["P3"] = wall(torch, lambda: sharded_l1_topk_adaptive(
+            blocks_f, lib_f, 512, mesh18, stats=st3))
+        got["P4"], sharded["P4"] = wall(torch, lambda: sharded_l1_topk(b4k, l4k, 512, mesh42))
+        got["P5"], sharded["P5"] = wall(torch, lambda: sharded_build_l1_lut(lib1, mesh8))
+        got["P6"], sharded["P6"] = wall(torch, lambda: sharded_mosaic_step(
+            stack16, scene["src4"], mesh42, 4, 16), reps=1)
+        got["P7 mode 4"], sharded["P7 mode 4"] = wall(torch, lambda: render_nto1(
+            scene["src4"], ts4, 16, device=dev, compose=False, mesh=mesh42, log=_quiet).items,
+            reps=1)
+        res7f, sharded["P7 flagship"] = wall(torch, lambda: render_nto1_no_repeat(
+            src_f, ts_f, FLAGSHIP_DIM, device=dev, compose=False, mesh=mesh18, log=_quiet),
+            reps=1)
+    launches = {k.name: k.launches for k in KERNELS}
+    got["P7 flagship"] = res7f.items
+
+    ref["P2"] = ref["P1"]
+    ref["P7 mode 4"] = scene["items4"]
+    bd = lambda b, l: f"B={b.shape[0]} L={l.shape[0]} D={b.shape[1]}"  # noqa: E731
+    side4 = scene["src4"].shape[0]
+    shapes = {
+        "P1": f"sharded_l1_argmin 4x2, {bd(blocks_t, lib_t)}, planted ties",
+        "P2": "sharded_l1_argmin_ring n=8, the same inputs",
+        "P3": f"sharded_l1_topk_adaptive 1x8, {bd(blocks_f, lib_f)} k=512, clustered",
+        "P4": f"sharded_l1_topk 4x2, {bd(b4k, l4k)} k=512",
+        "P5": f"sharded_build_l1_lut n=8, L={lib1.shape[0]} (phase D's mode-1 library)",
+        "P6": f"sharded_mosaic_step 4x2, {t_tiles} tiles ts 16, {side4}^2 source, mode 4",
+        "P7 mode 4": f"render_nto1(mesh=4x2), mode 4 {side4}^2 (items)",
+        "P7 flagship": f"render_nto1_no_repeat(mesh=1x8), {side_flag}^2 mode 32 (items)",
+    }
+    single["P2"] = single["P1"]
+    for key, what in shapes.items():
+        a, b = got[key], ref[key]
+        a, b = (a if isinstance(a, tuple) else (a,)), (b if isinstance(b, tuple) else (b,))
+        for x, y in zip(a, b):
+            check(x.shape == y.shape and np.array_equal(x, y),
+                  f"{key} {what}: the sharded route differs from the single-device route")
+        log(f"P {key} {what}: equal to the single-device route; sharded "
+            f"{min(sharded[key]):.4f} s (runs {', '.join(f'{t:.4f}' for t in sharded[key])}), "
+            f"single-device {min(single[key]):.4f} s [{card}]")
+    check(st3["route"] == "adaptive", f"P3 route {st3['route']}")
+    check(st3["certified"] == blocks_f.shape[0], f"P3 certified {st3['certified']}")
+    log(f"P3 route {st3['route']} over {st3['shards']} shards, certified "
+        f"{st3['certified']}/{blocks_f.shape[0]} rows, fallback {st3['fallback']}")
+    info7 = res7f.info
+    check(info7["scorer"] == "sharded-exact" and info7["scoring"]["route"] == "adaptive",
+          f"P7 flagship scorer {info7['scorer']} {info7['scoring']}")
+    log(f"P launches of the sharded routes: {launches}")
+    del stack16, blocks4, lib4, lib_t, blocks_t, lib1, pal_f, stack_f, blocks_f, lib_f
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cli = phase_p8(card)
+    t8 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nccl = phase_p9(card)
+    t9 = time.perf_counter() - t0
+    log(f"P clock: P1-P7 {t0 - t_all - t8:.1f} s, P8 {t8:.1f} s, P9 {t9:.1f} s, "
+        f"total {time.perf_counter() - t_all:.1f} s [{card}]")
+    return {"launches": launches, "sharded_s": sharded, "single_s": single, "cli": cli,
+            "nccl": nccl}
+
+
+def phase_p8(card) -> dict:
+    """The CLI across two processes on cuda:0 (EMOSAIC_DISTRIBUTED, a
+    coordinator on localhost, `--mesh 2`) on phase E's scene and caches:
+    rank 0's PNG equals a single-process `--mesh off` run's, rank 1 stands
+    down, and the log names the host-staged gloo route."""
+    import socket
+
+    from PIL import Image
+
+    env = e_scene()
+    out = {}
+    for mode, size, down, extra in ((4, 32, 8, []), (16, 32, 8, ["--no-repeat"])):
+        base = ["-s", str(size), str(WORK / "photo.jpg"), "mosaic", str(WORK / "tiles"),
+                "-m", str(mode), "--downsample", str(down), *extra]
+        solo = WORK / f"p8_solo_{mode}.png"
+        t_solo, _ = run_cli(["-o", str(solo), *base, "--mesh", "off"], env, f"P8 -m {mode} solo")
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        dist = WORK / f"p8_dist_{mode}.png"
+        cmd = [sys.executable, "-m", "emosaic_tpu_torch.cli", "-o", str(dist), *base,
+               "--mesh", "2", "--device", "cuda"]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(cmd, cwd=WORK, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True,
+                                  env=dict(env, EMOSAIC_DISTRIBUTED="1",
+                                           EMOSAIC_COORDINATOR=f"localhost:{port}",
+                                           EMOSAIC_NUM_PROCESSES="2",
+                                           EMOSAIC_PROCESS_ID=str(r)))
+                 for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=300)[1])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        t_dist = time.perf_counter() - t0
+        for r, (p, err) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                log(err[-4000:])
+            check(p.returncode == 0, f"P8 -m {mode} rank {r} exited {p.returncode}")
+        check("CUDA partials go over gloo-host-staged" in logs[0],
+              "P8: the log does not name the host-staged gloo route")
+        check("rank 0 writes the outputs" in logs[1] and "rank 0 writes" not in logs[0],
+              "P8: rank 1 did not stand down")
+        check("Matching on a 2x1 (data x model) device mesh" in logs[0], "P8: no 2x1 mesh")
+        with Image.open(solo) as a, Image.open(dist) as b:
+            pa, pb = np.asarray(a.convert("RGB")), np.asarray(b.convert("RGB"))
+        check(pa.shape == pb.shape and np.array_equal(pa, pb),
+              f"P8 -m {mode} {extra}: rank 0's PNG differs from the single-process PNG")
+        route = next(ln for ln in logs[0].splitlines() if "CUDA partials go over" in ln)
+        log(f"P8 CLI -m {mode} -s {size} --downsample {down} {' '.join(extra)}: two ranks "
+            f"on cuda:0 with --mesh 2 in {t_dist:.1f} s, single process --mesh off in "
+            f"{t_solo:.1f} s; rank 0's {pb.shape[1]}x{pb.shape[0]} PNG equals it, rank 1 "
+            f"stood down; {route.strip()} [{card}]")
+        out[f"m{mode}"] = {"dist_s": t_dist, "solo_s": t_solo}
+        for f in (solo, dist, solo.with_suffix(".stats.png"), dist.with_suffix(".stats.png")):
+            f.unlink(missing_ok=True)
+    return out
+
+
+_P9_CHILD = """
+import json, socket, sys
+import torch
+sys.path.insert(0, {root!r})
+import torch.distributed as dist
+from emosaic_tpu_torch.ops import distance
+from emosaic_tpu_torch.parallel import make_mesh, sharded_l1_argmin
+from emosaic_tpu_torch.parallel.distributed import init_distributed, world
+with socket.socket() as s:
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+init_distributed(f"localhost:{{port}}", 1, 0)
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev)
+gen.manual_seed(0)
+blocks = torch.randint(0, 256, (65536, 48), dtype=torch.uint8, device=dev, generator=gen)
+lib = torch.randint(0, 256, (200000, 48), dtype=torch.uint8, device=dev, generator=gen)
+got = sharded_l1_argmin(blocks, lib, make_mesh(devices=[dev]))
+want = [x.cpu().numpy() for x in distance.l1_argmin(blocks, lib)]
+equal = bool((got[0] == want[0]).all() and (got[1] == want[1]).all())
+print(json.dumps({{"route": world().route, "exchanges": dict(world().exchanges),
+                  "equal": equal}}), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def phase_p9(card) -> dict:
+    """One NCCL world of size 1 in a child process (a process group cannot
+    be destroyed and re-made with another backend reliably in one
+    process): the route is NCCL, and `sharded_l1_argmin` on a [cuda:0]
+    mesh sends its exchange through it."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _P9_CHILD.format(root=str(ROOT))],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT)
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+    check(proc.returncode == 0, f"P9 exited {proc.returncode}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(res["route"] == "nccl" and res["exchanges"].get("nccl", 0) >= 1,
+          f"P9: route {res['route']}, exchanges {res['exchanges']}")
+    check(res["equal"], "P9: sharded_l1_argmin over NCCL differs from l1_argmin")
+    log(f"P9 NCCL world of 1: route {res['route']}, exchanges {res['exchanges']}, "
+        f"sharded_l1_argmin equal to l1_argmin, {time.perf_counter() - t0:.1f} s [{card}]")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # E
 # ---------------------------------------------------------------------------
 
 
-def phase_e(card) -> None:
+def e_scene() -> dict:
+    """Phase E's scene in WORK, made once: 4096 tile files and a 4000x3000
+    photo. Returns the environment of the CLI runs (its cache directory is
+    WORK/xdg, which later runs reuse)."""
     from PIL import Image
 
     Image.MAX_IMAGE_PIXELS = None  # the outputs are 192 MP
+    env = dict(os.environ, XDG_CACHE_HOME=str(WORK / "xdg"),
+               PYTHONPATH=os.pathsep.join(filter(None, [str(ROOT), os.environ.get("PYTHONPATH")])))
+    if (WORK / "photo.jpg").exists():
+        return env
     rng = np.random.default_rng(SEED)
     tiles = WORK / "tiles"
     tiles.mkdir(parents=True, exist_ok=True)
@@ -1552,8 +1841,14 @@ def phase_e(card) -> None:
     photo = np.clip(photo + rng.normal(0, 6, photo.shape), 0, 255).astype(np.uint8)
     Image.fromarray(photo).save(WORK / "photo.jpg", quality=92)
     log(f"E scene: 4096 tiles + a {w}x{h} photo in {time.perf_counter() - t0:.1f} s")
-    env = dict(os.environ, XDG_CACHE_HOME=str(WORK / "xdg"),
-               PYTHONPATH=os.pathsep.join(filter(None, [str(ROOT), os.environ.get("PYTHONPATH")])))
+    return env
+
+
+def phase_e(card) -> None:
+    from PIL import Image
+
+    env = e_scene()
+    tiles = WORK / "tiles"
     from emosaic_tpu_torch.cli import preprocess_source
 
     # the no-repeat runs: 62x47 = 2914 blocks against 4096 tiles
@@ -2113,7 +2408,8 @@ def main() -> int:
         phase_c_tint_lut(torch, gen, dev, card)
         phase_c_no_fallback(torch, gen, dev)
         log("== D. main path at the BASELINE size")
-        launches_d = phase_d(torch, gen, dev, card)
+        d_scene = phase_d(torch, gen, dev, card)
+        launches_d = d_scene.pop("launches")
         torch.cuda.empty_cache()
         log("== N. the no-repeat main path at the flagship size")
         n = phase_n(torch, gen, dev, card)
@@ -2128,11 +2424,17 @@ def main() -> int:
         phase_e(card)
         log("== S. the resident service")
         launches_s = phase_s(torch, card)
+        log("== P. parallel/: the sharded routes, the CLI over two processes, NCCL")
+        p = phase_p(torch, gen, dev, card, d_scene)
+        launches_p = p["launches"]
+        del d_scene
         log("== F. counters")
         for path, counts, names in [("D", launches_d, ("l1_argmin", "compose")),
                                     ("N", launches_n, ("l1_rows", "coarse_topcap", "compose")),
                                     ("H", launches_h, ("l1_rows", "compose")),
                                     ("S", launches_s, ("l1_argmin", "compose")),
+                                    ("P", launches_p, ("l1_argmin", "compose", "l1_rows",
+                                                       "coarse_topcap")),
                                     ("L", launches_l, ("seg_topcap", "coarse_topcap",
                                                        "floor_write", "compose_bulk",
                                                        "compose_bulk2", "band_transpose"))]:
@@ -2159,6 +2461,8 @@ def main() -> int:
             "source": str(k.source.relative_to(ROOT)), "replaces": replaces,
             "launches": launches[k.name], "launches_s": launches_s[k.name], **res,
         })
+    for i in (0, 1, 2, 8):  # the kernels of phase P's sharded routes
+        rows[i]["launches_p"] = launches_p[rows[i]["name"]]
     rows[1]["also_replaces"] = "emosaic_tpu/ops/composite.py:82"
     rows[2]["also_replaces"] = "tools/tpu_r19_flatdma.py:48"
     rows[2]["launches_h"] = launches_h["l1_rows"]

@@ -9,11 +9,11 @@ matched route (with `--randomize`, `--no-repeat --greedy`, `--matcher
 {auto,lut,pallas,xla,hybrid}` and `--metric {l1,l2}`), the global
 no-repeat route (`--no-repeat`, also with `--matcher hybrid`), `-m
 random`, the tint route, the banded PNG route, the stats PNG, `--html` /
-`--web` and `--profile` (on torch.profiler) run here; `--mesh` and
-`EMOSAIC_DISTRIBUTED` raise NotImplementedError naming their ROADMAP
-item. Parity quirks kept: the output is always PNG-encoded
-(main.rs:482-483) and the tint path returns before the stats and the
-HTML (main.rs:477).
+`--web`, `--profile` (on torch.profiler), `--mesh` (the sharded matchers
+of `parallel/`) and multi-process runs under `EMOSAIC_DISTRIBUTED` (on
+torch.distributed; rank 0 alone writes the outputs) run here. Parity
+quirks kept: the output is always PNG-encoded (main.rs:482-483) and the
+tint path returns before the stats and the HTML (main.rs:477).
 """
 
 from __future__ import annotations
@@ -316,7 +316,10 @@ def build_parser() -> argparse.ArgumentParser:
         "device), 'auto' (all devices, data-parallel), 'N' (N devices, "
         "data-parallel) or 'DxM' (D data x M library shards). Sharded "
         "results are bit-identical to single-device. Applies to the "
-        "exact-L1 matchers; lut/hybrid/l2 matchers stay single-device",
+        "exact-L1 matchers; lut/hybrid/l2 matchers stay single-device. "
+        "With --device cuda the devices are the GPUs of every process; "
+        "with --device cpu the mesh is virtual on the one CPU device (any "
+        "DxM, 'auto' = one position per process)",
     )
     m.add_argument(
         "--stats-json",
@@ -351,7 +354,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 # ---------------------------------------------------------------------------
-# device and the routes not ported yet
+# device, and the multi-device mesh (--mesh)
 # ---------------------------------------------------------------------------
 
 
@@ -373,24 +376,61 @@ def resolve_device(name: str):
     raise ValueError(f"unknown device {name!r}")
 
 
-def _refuse_unported(args) -> None:
-    """Raise NotImplementedError for every flag whose route is not ported,
-    naming its ROADMAP item, instead of ignoring it."""
-    checks = [
-        (os.environ.get("EMOSAIC_DISTRIBUTED"), "EMOSAIC_DISTRIBUTED",
-         "parallel/ -> torch.distributed"),
-    ]
-    if args.subcmd == "mosaic":
-        checks.append(
-            (args.mesh.strip().lower() != "off", f"--mesh {args.mesh}",
-             "parallel/ -> torch.distributed")
+def _parse_mesh(spec: str, log, device):
+    """Resolve a --mesh spec to a ("data", "model") Mesh, or None.
+
+    'off' -> None; 'auto' -> all visible devices, data-parallel;
+    'N' -> N devices data-parallel; 'DxM' -> D data x M library shards.
+    A 1-device resolution returns None (the single-device kernels are the
+    same computation without the shard plumbing). On `cuda` the visible
+    devices are this process's GPUs times the processes; on the CPU the
+    mesh is virtual on the one CPU device (any size; 'auto' is one
+    position per process).
+    """
+    spec = spec.strip().lower()
+    if spec == "off":
+        return None
+    import torch
+
+    from emosaic_tpu_torch.parallel import distributed, make_mesh
+
+    cuda = device.type == "cuda"
+    avail = (torch.cuda.device_count() if cuda else 1) * distributed.world_size()
+    if spec == "auto":
+        data, model = avail, 1
+    else:
+        parts = spec.split("x")
+        try:
+            if len(parts) == 1:
+                data, model = int(parts[0]), 1
+            elif len(parts) == 2:
+                data, model = int(parts[0]), int(parts[1])
+            else:
+                raise ValueError
+        except ValueError:
+            raise SystemExit(
+                f"❌ Invalid --mesh '{spec}': expected off, auto, N, or DxM"
+            ) from None
+    n = data * model
+    if cuda and n > avail:
+        raise SystemExit(
+            f"❌ --mesh {spec} needs {n} devices but only {avail} are visible"
         )
-    for hit, flag, item in checks:
-        if hit:
-            raise NotImplementedError(
-                f"{flag} is not ported to emosaic_tpu_torch yet "
-                f"(ROADMAP: {item}); use emosaic_tpu for it"
-            )
+    if n <= 1:
+        return None
+    mesh = make_mesh(n, model=model, devices=None if cuda else [device] * n)
+    log(f"🕸  Matching on a {data}x{model} (data x model) device mesh")
+    return mesh
+
+
+def _write_rank() -> bool:
+    """Host file I/O under EMOSAIC_DISTRIBUTED: every rank computes, one
+    rank writes. Always True outside a multi-process run."""
+    if not os.environ.get("EMOSAIC_DISTRIBUTED"):
+        return True
+    from emosaic_tpu_torch.parallel.distributed import is_rank0
+
+    return is_rank0()
 
 
 # ---------------------------------------------------------------------------
@@ -454,7 +494,8 @@ def run_prepare(args) -> None:
     from PIL import Image
 
     tile = prepare_tile(args.img, args.tile_size, args.crop)
-    Image.fromarray(tile).save(args.output_path)
+    if _write_rank():
+        Image.fromarray(tile).save(args.output_path)
 
 
 def run_matched(args, original, mode, device, timer):
@@ -501,6 +542,7 @@ def run_matched(args, original, mode, device, timer):
         "hybrid": "auto",
     }[args.matcher]
     hybrid = args.matcher == "hybrid"
+    mesh = _parse_mesh(args.mesh, log, device)
     # gigapixel outputs are composed in bands and PNG-encoded
     # incrementally; stack=None (too big for memory) always streams
     out_h = (src.shape[0] // dim) * args.tile_size
@@ -530,6 +572,7 @@ def run_matched(args, original, mode, device, timer):
                 src, tile_set, args.tile_size, device=device, stack=stack,
                 compose=not streaming,
                 scorer="hybrid" if hybrid else "exact",
+                mesh=mesh,
             )
         else:
             result = render_nto1(
@@ -545,6 +588,7 @@ def run_matched(args, original, mode, device, timer):
                 hybrid=hybrid,
                 stack=stack,
                 compose=not streaming,
+                mesh=mesh,
             )
     result.stats.summarise(tile_set)
     output = result.image
@@ -628,6 +672,11 @@ def run_mosaic(args, timer=None) -> None:
         )
 
     out_path = args.output_path
+    if not _write_rank():
+        # a multi-process run (EMOSAIC_DISTRIBUTED): every rank computed the
+        # same result over the mesh; the outputs belong to rank 0 alone
+        log("🛰  compute done on this rank; rank 0 writes the outputs")
+        return
     original_rgb = None
     if args.tint_opacity > 0.0:
         # the tint overlay is the *original* source at full resolution
@@ -740,11 +789,16 @@ def main(argv=None) -> int:
         validate_tile_size(args.tile_size)
         validate_input_image(args.img)
         validate_output_path(args.output_path)
-        _refuse_unported(args)
         if args.fast_prep:
             # env-var backed so spawn-context prep workers and every cache
             # path helper see the same mode; restored on exit
             os.environ["EMOSAIC_FAST_PREP"] = "1"
+        if os.environ.get("EMOSAIC_DISTRIBUTED"):
+            # join the multi-process run before the first device op; the
+            # mesh then spans every process and rank 0 alone writes
+            from emosaic_tpu_torch.parallel.distributed import init_distributed
+
+            init_distributed()
         cache_dir().mkdir(parents=True, exist_ok=True)
         profiler = _start_profiler(args) if args.profile else None
         try:

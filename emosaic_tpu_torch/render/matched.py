@@ -64,13 +64,6 @@ class RenderOutcome:
     info: dict | None = None  # the no-repeat renderer's scoring record
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to emosaic_tpu_torch yet (ROADMAP: {item}); "
-        "use emosaic_tpu for it"
-    )
-
-
 def insufficient_tiles_check(n_blocks: int, n_tiles: int) -> None:
     """rendering.rs:150-156 / :288-294."""
     if n_blocks > n_tiles * 2:
@@ -138,13 +131,20 @@ def match_blocks(
     use_lut: str = "auto",
     metric: str = "l1",
     hybrid: bool = False,
+    mesh=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Match on the blocks' device: the squared-L2 argmin (`metric="l2"`),
     the hybrid (`hybrid=True`, modes above 1), or the exact L1 match: the
     LUT (mode 1, >= 4096 blocks, or `use_lut="always"`), else the argmin
     kernel, with repeated blocks deduplicated first when a sample says
-    fewer than half are unique. Returns host (dist [B] int32, row [B]
-    int32)."""
+    fewer than half are unique.
+
+    With `mesh` (`parallel.make_mesh`), the exact-L1 match shards blocks
+    over "data" and the library over "model" (`sharded_l1_argmin`),
+    bit-identical to the single-device kernels; the l2 and hybrid modes,
+    an automatic mode-1 LUT and an explicit `use_lut="always"` stay
+    single-device, as in the JAX package. Returns host (dist [B] int32,
+    row [B] int32)."""
     if metric == "l2":
         return l2_argmin(blocks, lib)
     if hybrid and blocks.shape[1] > 3:
@@ -152,6 +152,11 @@ def match_blocks(
     b, d = blocks.shape
     lut_ok = d == 3 and lib.shape[0] <= MAX_ROWS
     lut_auto = use_lut == "auto" and lut_ok and b >= _LUT_MIN_BLOCKS
+    if mesh is not None and use_lut != "always" and not lut_auto:
+        # mode-1 runs keep the LUT under a mesh (the same result, faster)
+        from emosaic_tpu_torch.parallel import sharded_l1_argmin
+
+        return sharded_l1_argmin(blocks, lib, mesh)
     if use_lut == "always" or lut_auto:
         if not lut_ok:
             raise ValueError("LUT path requires mode 1 and a small-enough library")
@@ -185,11 +190,14 @@ def render_nto1(
     hybrid: bool = False,
     stack: np.ndarray | None = None,
     compose: bool = True,
+    mesh=None,
     log=lambda *a: print(*a, file=sys.stderr),
 ) -> RenderOutcome:
     """Render the matched mosaic of `source_img` on `device`: the match of
     `match_blocks`, or with `randomize` a seeded choice among the
-    near-best, or with `no_repeat` the in-render no-repeat choice."""
+    near-best, or with `no_repeat` the in-render no-repeat choice. With
+    `mesh`, the match and the top-k lists are sharded over it, with the
+    same results."""
     if no_repeat and randomize is not None:
         raise ValueError(
             "no_repeat + randomize is unsupported (the reference deadlocks "
@@ -220,9 +228,18 @@ def render_nto1(
                 "always scores with the exact L1 top-k"
             )
     rng = np.random.default_rng(seed)
+
+    def topk(k: int) -> tuple[np.ndarray, np.ndarray]:
+        """Exact top-k candidate lists, sharded over the mesh when given."""
+        if mesh is not None:
+            from emosaic_tpu_torch.parallel import sharded_l1_topk
+
+            return sharded_l1_topk(blocks, lib, k, mesh)
+        return l1_topk(blocks, lib, k)
+
     if randomize is not None:
         k = min(_DEFAULT_RANDOM_NEIGHBORS, lib.shape[0])
-        cd, cr = l1_topk(blocks, lib, k)
+        cd, cr = topk(k)
         mins = cd[:, 0].astype(np.float64)
         eligible = (cd.astype(np.float64) - mins[:, None]) < (
             float(randomize) * mins[:, None] / 100.0
@@ -234,7 +251,7 @@ def render_nto1(
         dists = np.take_along_axis(cd, pick[:, None], axis=1)[:, 0]
     elif no_repeat:
         k = min(_GREEDY_TOPK, lib.shape[0])
-        cd, cr = l1_topk(blocks, lib, k)
+        cd, cr = topk(k)
         # render order: rows in sequence, x shuffled per row
         order = np.concatenate(
             [by * htiles + rng.permutation(htiles) for by in range(vtiles)]
@@ -251,7 +268,7 @@ def render_nto1(
             )
     else:
         dists, rows = match_blocks(
-            blocks, lib, use_lut=use_lut, metric=metric, hybrid=hybrid
+            blocks, lib, use_lut=use_lut, metric=metric, hybrid=hybrid, mesh=mesh
         )
     # stats_step=dim: source-pixel coords (rendering.rs:211-214)
     return finish_render(

@@ -8,7 +8,10 @@ The torch counterpart of `emosaic_tpu/render/norepeat.py`. Two phases:
    from the adaptive certified scorer (`adaptive-exact`, whose shortlist
    rescore is kernel K3) with exact masked refills during assignment.
    `scorer="hybrid"` takes the approximate L2-prefilter lists (`hybrid`,
-   exact L1 distances rescored on K3) past the full-list budget.
+   exact L1 distances rescored on K3) past the full-list budget. With a
+   mesh, the exact lists come from the adaptive scorer with blocks split
+   over every mesh position (`sharded-exact`); an explicit hybrid keeps
+   its precedence over the mesh.
 2. Assignment: best-match-first priority queue with mirror-pair exclusion
    (render/greedy.py, or the native engine), exactly the worklist
    semantics of rendering.rs:323-392.
@@ -36,7 +39,6 @@ from emosaic_tpu_torch.ops.distance import (
 from emosaic_tpu_torch.render.greedy import greedy_global_assign, make_numpy_refill
 from emosaic_tpu_torch.render.matched import (
     RenderOutcome,
-    _not_ported,
     finish_render,
     start_render,
 )
@@ -72,12 +74,11 @@ def render_nto1_no_repeat(
     The outcome's `info` holds the scorer used, its statistics (route,
     certified and fallback rows, per-step seconds), the assignment engine
     and its device refill events, and the seconds of scoring, assignment
-    and compose (each ending in a synchronize)."""
+    and compose (each ending in a synchronize). `mesh`
+    (`parallel.make_mesh`) shards the exact scoring over it."""
     if scorer not in ("exact", "hybrid"):
         # fail loud: a typo would otherwise silently run the exact path
         raise ValueError(f"scorer must be 'exact' or 'hybrid', got {scorer!r}")
-    if mesh is not None:
-        raise _not_ported("--no-repeat --mesh", "6. parallel/ -> torch.distributed")
     dim, htiles, vtiles, blocks, lib = start_render(
         source_img, tile_set, tile_size, log, device=device, check_tiles=True
     )
@@ -93,6 +94,17 @@ def render_nto1_no_repeat(
         scorer_used = "hybrid"
         k = min(_TRUNCATED_K, l)
         cd, cr = l1_topk_hybrid(blocks, lib, k, k_pre=min(2 * k, l))
+    elif mesh is not None:
+        # the adaptive certified scorer with blocks over every mesh
+        # position; declined shapes and concentrated data go inside to the
+        # sharded stripes. Truncation to K does not change the assignment
+        # (see _TRUNCATED_K)
+        from emosaic_tpu_torch.parallel import sharded_l1_topk_adaptive
+
+        scorer_used = "sharded-exact"
+        k = min(_TRUNCATED_K, l)
+        info["scoring"] = {}
+        cd, cr = sharded_l1_topk_adaptive(blocks, lib, k, mesh, stats=info["scoring"])
     elif b * l <= _EXACT_BUDGET and lib.numel() <= _distance.DEVICE_LIB_BYTES_MAX:
         # the full sorted candidate list per block: the dense matrix on the
         # device, a stable argsort on the host (a device top-k at k = L is

@@ -5,7 +5,8 @@ gradient source, 120 noisy 40x40 tiles), each in its own copy of the tile
 directory with its own prepared-tile cache. Output pixels, the stats PNG
 and the analysis cache must be equal. Also: the port reads the JAX
 package's analysis cache, imports neither jax nor emosaic_tpu, refuses
-`--device cuda` without a GPU, and refuses every flag it does not port.
+`--device cuda` without a GPU, runs `--mesh auto` on the CPU, and
+raises like the JAX CLI under EMOSAIC_DISTRIBUTED with no cluster.
 The no-repeat routes (`--no-repeat`, with and without `--greedy`),
 `--randomize`, `-m random` (in memory and streamed), `--matcher xla`,
 `--metric l2`, and `--matcher hybrid` with and without `--no-repeat` are
@@ -190,11 +191,16 @@ def test_device_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("pre,post", [([], ["--mesh", "auto"])])
-def test_unported_flags_raise(scene, monkeypatch, pre, post):
-    monkeypatch.chdir(scene)
-    argv = [*pre, "-s", "16", "source.png", "mosaic", "tiles", *post, "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(argv)
+def test_unported_flags_raise(scene, tmp_path, monkeypatch, pre, post):
+    """`--mesh auto --device cpu` runs: on the one CPU device it resolves to
+    a single device, so the PNG and the stats PNG equal the JAX CLI's
+    `--mesh auto` (a mesh over conftest's 8 CPU devices) on the scene."""
+    _run(jax_cli.main, scene, tmp_path / "jax", [*pre, *post], monkeypatch)
+    _run(cli.main, scene, tmp_path / "port", [*pre, *post, "--device", "cpu"], monkeypatch)
+    for name in ("out.png", "out.stats.png"):
+        np.testing.assert_array_equal(
+            _pixels(tmp_path / "port" / name), _pixels(tmp_path / "jax" / name)
+        )
 
 
 def test_no_repeat_with_randomize_is_refused_like_jax(scene, monkeypatch):
@@ -208,10 +214,19 @@ def test_no_repeat_with_randomize_is_refused_like_jax(scene, monkeypatch):
 
 
 def test_distributed_env_raises(scene, monkeypatch):
+    """EMOSAIC_DISTRIBUTED=1 with no cluster environment: both CLIs raise
+    the JAX package's RuntimeError instead of rendering alone."""
     monkeypatch.chdir(scene)
+    for k in ("EMOSAIC_COORDINATOR", "EMOSAIC_NUM_PROCESSES", "EMOSAIC_PROCESS_ID",
+              "RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv("EMOSAIC_DISTRIBUTED", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    what = "EMOSAIC_DISTRIBUTED=1 but the multi-controller runtime could not initialize"
+    with pytest.raises(RuntimeError, match=what):
+        jax_cli.main(["-s", "16", "source.png", "mosaic", "tiles"])
+    with pytest.raises(RuntimeError, match=what):
         cli.main(["-s", "16", "source.png", "mosaic", "tiles", "--device", "cpu"])
+    assert not (scene / "output.jpg").exists()
 
 
 def _package_data(pkg: str) -> tuple[list, set]:

@@ -1,4 +1,5 @@
-"""K1 to K9 against their plain torch versions on an NVIDIA GPU.
+"""K1 to K9 against their plain torch versions on an NVIDIA GPU, and the
+sharded routes of `parallel/` on a virtual mesh of the one card.
 
 A CUDA kernel has no CPU mode, so these tests are marked `cuda` and skip
 on a host without a GPU. This file imports neither jax nor the JAX
@@ -374,3 +375,38 @@ def test_k8_matches_plain(cuda, ts, w, nby, nbx):
     torch.cuda.synchronize()
     assert BAND_TRANSPOSE.launches == before + 1
     assert torch.equal(got, composite_lab.band_transpose_ref(sel, nby, nbx))
+
+
+def test_sharded_on_a_virtual_card_mesh(cuda):
+    """A virtual mesh of four positions on the one card: the sharded argmin
+    (K1 per shard) and the sharded adaptive scorer (K9 and K3 per shard)
+    equal the single-device routes on the card."""
+    from emosaic_tpu_torch.parallel import make_mesh, sharded_l1_argmin, sharded_l1_topk_adaptive
+
+    rng = np.random.default_rng(21)
+    mesh = make_mesh(4, model=2, devices=[cuda] * 4)
+    blocks, lib = _u8(rng, (301, 48), cuda), _u8(rng, (2051, 48), cuda)
+    lib[1500] = lib[3]  # a tie across the two library shards
+    blocks[9] = lib[3]
+    before = L1_ARGMIN.launches
+    got = sharded_l1_argmin(blocks, lib, mesh)
+    assert L1_ARGMIN.launches == before + 4
+    want = distance.l1_argmin(blocks, lib)
+    np.testing.assert_array_equal(got[0], want[0].cpu().numpy())
+    np.testing.assert_array_equal(got[1], want[1].cpu().numpy())
+
+    bases = rng.integers(0, 256, size=(40, 48))
+    lib = np.clip(np.repeat(bases, 250, axis=0) + rng.integers(-5, 6, (10000, 48)), 0, 255)
+    lib = torch.from_numpy(lib.astype(np.uint8)).to(cuda)
+    pick = torch.from_numpy(rng.integers(0, 10000, 300)).to(cuda)
+    noise = torch.from_numpy(rng.integers(-3, 4, (300, 48))).to(cuda)
+    blocks = (lib[pick].int() + noise).clamp(0, 255).to(torch.uint8)
+    mesh = make_mesh(4, devices=[cuda] * 4)
+    before = (L1_ROWS.launches, COARSE_TOPCAP.launches)
+    st = {}
+    got = sharded_l1_topk_adaptive(blocks, lib, 8, mesh, stats=st)
+    assert st["route"] == "adaptive" and L1_ROWS.launches > before[0]
+    assert COARSE_TOPCAP.launches > before[1]
+    want = distance.l1_topk_adaptive(blocks, lib, 8)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])

@@ -12,12 +12,14 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from emosaic_tpu.render import matched as jax_matched
 from emosaic_tpu.render import norepeat as jax_norepeat
 from emosaic_tpu.tiles.tileset import TileSet as JaxTileSet
 from emosaic_tpu_torch import native
 from emosaic_tpu_torch.ops import distance
+from emosaic_tpu_torch.parallel import make_mesh
 from emosaic_tpu_torch.render import matched, norepeat
 from emosaic_tpu_torch.tiles.tileset import TileSet
 
@@ -159,8 +161,20 @@ def test_no_repeat_refusals(rng):
         norepeat.render_nto1_no_repeat(src, ts, 4, device="cpu", scorer="fastest")
     with pytest.raises(ValueError, match="Insufficient tiles"):
         norepeat.render_nto1_no_repeat(src, ts, 4, device="cpu", scorer="hybrid")
-    with pytest.raises(NotImplementedError, match="ROADMAP: 6"):
-        norepeat.render_nto1_no_repeat(src, ts, 4, device="cpu", mesh=object())
+    # a mesh is no refusal: it gives the single-device item grid
+    pal = rng.integers(0, 256, size=(60, 1, 3), dtype=np.uint8)
+    ts, jts = _sets(pal)
+    src = rng.integers(0, 256, size=(6, 10, 3), dtype=np.uint8)  # 60 blocks
+    mesh = make_mesh(8, model=2, devices=[torch.device("cpu")] * 8)
+    got = norepeat.render_nto1_no_repeat(src, ts, 4, device="cpu", mesh=mesh, compose=False,
+                                         **quiet)
+    assert got.info["scorer"] == "sharded-exact"
+    want = jax_norepeat.render_nto1_no_repeat(src, jts, 4, compose=False, **quiet)
+    np.testing.assert_array_equal(got.items, want.items)
+    np.testing.assert_array_equal(
+        got.items,
+        norepeat.render_nto1_no_repeat(src, ts, 4, device="cpu", compose=False, **quiet).items,
+    )
 
 
 def test_matcher_knob_ignored_warning_matches_jax(rng):
