@@ -7,7 +7,7 @@ Run from the root of a checkout. Phases, each printing its own lines:
 
   A  environment: torch/CUDA versions, the card's name and power limit,
      nvcc, and a GPU, or it stops;
-  B  build: the nine CUDA kernels from the eight sources of
+  B  build: the eleven CUDA kernels from the nine sources of
      `emosaic_tpu_torch/csrc/` (one nvcc per source, started together) and
      the native C++ greedy engine;
   C  each kernel against its plain torch version on the card, exactly:
@@ -16,7 +16,12 @@ Run from the root of a checkout. Phases, each printing its own lines:
      and s_min at nseg 1..1563, caps 1, 8, 16, every dout the plan gives,
      6..1536, on clustered and duplicated data; timed at the flagship
      shape against cdist + K4, with the FP32 lanes' rate, derived and
-     measured, as its ceiling) at test and main-path shapes, K3 and K4
+     measured, as its ceiling) and K10 (the exact u8 L1 kernel: its stripe
+     entry at D 3..49152, its fused per-segment top-cap at caps 1..33 on
+     tie storms, a padded last segment, col0 offsets and rows past 2^24,
+     both at the worst case's and P4's shapes; the stripe timed against
+     `torch.cdist(p=1)`, the top-cap against cdist + the per-segment
+     selection it replaces) at test and main-path shapes, K3 and K4
      also past 4 GiB; K1 also on tie storms, at D = 49152 and 65800 and across D
      (12..3072 at B=4096, L=200000, in T byte pairs/s), K3 on both of its
      paths with ragged groups; the CUDA cores' VABSDIFF4 rate, derived and
@@ -27,7 +32,7 @@ Run from the root of a checkout. Phases, each printing its own lines:
      items, at the BASELINE band and past 4 GiB (K5's band; K6 and K7 on a
      9.8 GB stack); the tint over all 256 alphas x 65536 pairs, the card's
      LUT against the CPU's, and a no-fallback run with the plain versions
-     made to raise;
+     made to raise (and `torch.cdist` on K10's routes);
   D  the repeat main path at the BASELINE size through `render_nto1`,
      from in-memory arrays: 100k synthetic tiles, mode 1 on a 4096^2
      source (LUT), then mode 4 on a 2048^2 source (K1) streamed with a
@@ -38,7 +43,8 @@ Run from the root of a checkout. Phases, each printing its own lines:
      its rescore; the native greedy engine with device refills; K2), its
      candidate lists against the two-level scorer's, K3 timed on those
      lists' own rescore inputs with their reuse, the worst case
-     (uniform data) through `l1_topk`, and a full-library-consumption
+     (uniform data) through `l1_topk` (the two-level scorer on K10, with
+     its own launch counts), and a full-library-consumption
      assignment with device refills against host scans;
   L  the lab probes, with the composite lab kernels' plain versions made
      to raise: `probes/seg8.py` (`seg_topk` on K4, and the coarse pass at
@@ -92,8 +98,9 @@ Run from the root of a checkout. Phases, each printing its own lines:
      one process carrying `sharded_l1_argmin`'s exchange. A virtual mesh
      measures the shard plumbing's overhead, not a multi-GPU speedup;
   F  the launch counts of each main path's run (D: K1 and K2; N: K3, K9
-     and K2; H: K3 and K2; L: K4, K9, K5, K6, K7 and K8; S: K1 and K2; P:
-     K1, K2, K3 and K9), which must be > 0.
+     and K2, and in its worst case K10's two entries; H: K3 and K2; L: K4,
+     K9, K5, K6, K7 and K8; S: K1, K2 and K10's stripe; P: K1, K2, K3, K9
+     and K10's top-cap), which must be > 0.
 
 Phases run in the order A, B, C, D, N, L, H, E, S, P (P's CLI runs reuse
 E's scene and caches), then F. Any failed check raises, so the exit code
@@ -106,7 +113,7 @@ input read once, each output written once; for gathers, the rows this
 run's indices reach) over 3.35 TB/s, and its integer operations (an
 absolute difference and an add per byte pair; none counted for K4's
 selection) over 1979 TOP/s, the H100 SXM's published HBM rate and int8
-peak at its 700 W limit. K1, K3 and K9 also carry `ceiling_ms`: exact L1
+peak at its 700 W limit. K1, K3, K9 and K10 also carry `ceiling_ms`: exact L1
 has no tensor-core form at a useful cost, so the least time their
 CUDA-core work can take is the byte pairs over the VABSDIFF4 rate (SMs x
 64 lanes x 4 byte pairs x the maximum SM clock, or what a pure VABSDIFF4
@@ -754,6 +761,157 @@ def phase_c_k9(torch, gen, dev, card, frate, b=16384, nseg_flag=512) -> dict:
                      "coarse pass in one call)"}
 
 
+def phase_c_k10(torch, gen, dev, card, rate, b=16384, l=65534,
+                p4=(4096, 32767)) -> tuple[dict, dict]:
+    """K10's two entry points against their plain versions, exactly: the
+    stripe (`l1_block` on u8 rows against `_l1_block_ref`) at D 3..49152
+    with ragged rows, and the fused top-cap (`l1_topcap` against
+    `_l1_topcap_ref`) at caps 1..32 and 33, on tie storms, a padded last
+    segment, a col0 offset and rows past 2^24; then at the worst case's
+    shape (uniform B=16384 against L=65534 rows of D=3072, cap 8; exact on
+    a row sample) and at P4's shard shape (4096 rows against 32767 of D=48,
+    cap 16, col0 = 32767, whole). Timed: the stripe against
+    `torch.cdist(p=1)` at phase N's [4096, 3072] x [65534, 3072] chunk, the
+    top-cap against cdist + the per-segment `_least` it replaces, each
+    beside its bound and its VABSDIFF4 ceiling. Returns (stripe, top-cap)."""
+    from emosaic_tpu_torch.ops import distance
+
+    es, et = Err(), Err()
+
+    def stripe_case(r, n, d):
+        x, t = _u8(torch, gen, (r, d), dev), _u8(torch, gen, (n, d), dev)
+        es.add(torch, distance.l1_block(x, t), distance._l1_block_ref(x, t),
+               f"K10 stripe r={r} L={n} D={d}")
+
+    shapes = [(r, n, d) for d in (3, 12, 48, 768, 3072) for r, n in ((1, 1), (130, 300), (257, 1000))]
+    for r, n, d in shapes + [(130, 300, 49152)]:
+        stripe_case(r, n, d)
+    log(f"K10 stripe at D 3..49152, rows 1..257 x library 1..1000: exact [{card}]")
+
+    def topcap_case(x, t, cap, col0, real_l, what):
+        et.add(torch, distance.l1_topcap(x, t, cap, col0=col0, real_l=real_l),
+               distance._l1_topcap_ref(x, t, cap, col0, real_l), what)
+
+    for d in (3, 12, 48, 768, 3072):
+        caps = range(1, 34) if d == 48 else (1, 8, 16, 32, 33)
+        for kind in ("uniform", "storm"):
+            if kind == "storm":  # four distinct rows: every segment's cap cuts a tie
+                t = _u8(torch, gen, (4, d), dev).repeat(250, 1)
+            else:
+                t = _u8(torch, gen, (1000, d), dev)
+            x = _u8(torch, gen, (130, d), dev)
+            x[0] = t[500]
+            for cap in caps:
+                topcap_case(x, t, cap, 0, 1000, f"K10 top-cap D={d} cap={cap} {kind}")
+    x, t = _u8(torch, gen, (300, 48), dev), _u8(torch, gen, (640, 48), dev)
+    for col0, real_l in ((1000, 1200), (4096, 10**6), (128, 128), (0, 700)):
+        for cap in (8, 16, 40):
+            topcap_case(x, t, cap, col0, real_l, f"K10 top-cap col0={col0} real_l={real_l}")
+    x = torch.zeros((3, 65800), dtype=torch.uint8, device=dev)
+    t = torch.full((300, 65800), 255, dtype=torch.uint8, device=dev)
+    t[290, 7] = 254
+    topcap_case(x, t, 8, 0, 300, "K10 top-cap D=65800 (rank path, ties past 2^24)")
+    got = distance.l1_topcap(x, t, 8)
+    torch.cuda.synchronize()
+    check(int(got[0, 2, 0] >> 32) == 255 * 65800 - 1 and int(got[0, 2, 0] & 0xFFFFFFFF) == 290,
+          "K10 D=65800: row 290 one lower must lead its segment")
+    del x, t, got
+    log("K10 top-cap at D 3..3072 x caps 1..33 (every cap at D=48), tie storms, a padded last "
+        "segment, col0 offsets with real_l inside and before the shard, D=65800: exact")
+
+    # the worst case's shape: uniform data, cap 8, exact on a row sample
+    d = 3072
+    x, t = _u8(torch, gen, (b, d), dev), _u8(torch, gen, (l, d), dev)
+    nseg = -(-l // 128)
+    keys = distance.l1_topcap(x, t, 8)
+    s = torch.arange(0, b, b // 64, device=dev)
+    topcap_wc = distance._l1_topcap_ref(x[s], t, 8, 0, l)
+    et.add(torch, keys[s], topcap_wc, f"K10 top-cap worst-case shape B={b} L={l} (64-row sample)")
+    ms_wc = cuda_ms(torch, lambda: distance.l1_topcap(x, t, 8), reps=3)
+    pairs_wc = b * l * d
+    nb_wc = x.numel() + t.numel() + keys.numel() * 8
+    del keys, topcap_wc
+    # same inputs for the kernel, its plain version and cdist + _least: 512 rows
+    rs, rc, rp = min(512, b), min(4096, b), min(256, b)  # the timed row counts
+    xs = x[:rs].contiguous()
+    cols = torch.arange(nseg * 128, device=dev)
+    tf = t.float()
+
+    def cdist_least():
+        dist = torch.nn.functional.pad(torch.cdist(xs.float(), tf, p=1).to(torch.int32),
+                                       (0, nseg * 128 - l), value=distance.I32_MAX)
+        return distance._least(distance._keys(dist, cols).view(-1, nseg, 128), 8)
+
+    check(torch.equal(cdist_least(), distance.l1_topcap(xs, t, 8)), "cdist + _least != K10")
+    tc_ms = cuda_ms(torch, lambda: distance.l1_topcap(xs, t, 8))
+    tc_plain_ms = cuda_ms(torch, lambda: distance._l1_topcap_ref(xs, t, 8, 0, l), reps=1)
+    tc_cdist_ms = cuda_ms(torch, cdist_least, reps=2)
+    pairs = rs * l * d
+    nb = xs.numel() + t.numel() + rs * nseg * 8 * 8
+    tc = {"ms": tc_ms, "plain_ms": tc_plain_ms, **bound(nb, 2.0 * pairs),
+          **ceiling(nb, pairs, rate), "library_ms": None, "cdist_least_ms": tc_cdist_ms,
+          "shape": f"{rs} rows x L={l} D={d} cap 8",
+          "ms_worst_case_shape": ms_wc, "worst_case_shape": f"B={b} L={l} D={d} cap 8",
+          "bound_ms_worst_case_shape": bound(nb_wc, 2.0 * pairs_wc)["bound_ms"],
+          "ceiling_ms_worst_case_shape": ceiling(nb_wc, pairs_wc, rate)["ceiling_ms"]}
+    log(f"K10 top-cap {tc['worst_case_shape']}: {ms_wc:.3f} ms ({pairs_wc / ms_wc / 1e9:.2f} T "
+        f"byte pairs/s), bound {tc['bound_ms_worst_case_shape']:.3f} ms, VABSDIFF4 ceiling "
+        f"{tc['ceiling_ms_worst_case_shape']:.3f} ms [{card}]")
+    log(f"K10 top-cap {tc['shape']}: kernel {tc_ms:.3f} ms, bound {tc['bound_ms']:.3f} ms "
+        f"({tc['bound_by']}), ceiling {tc['ceiling_ms']:.3f} ms; plain {tc_plain_ms:.3f} ms; "
+        f"cdist + _least per segment {tc_cdist_ms:.3f} ms [{card}]")
+
+    # the stripe at phase N's chunk: [4096, 3072] x [65534, 3072], against
+    # cdist; the kernel, its plain version and cdist on the same 256 rows
+    x4 = x[:rc].contiguous()
+    out = distance.l1_block(x4, t)
+    es.add(torch, out[::64], distance._l1_block_ref(x4[::64], t),
+           f"K10 stripe [{rc}, {d}] x [{l}, {d}] (sample)")
+    st_main_ms = cuda_ms(torch, lambda: distance.l1_block(x4, t), reps=3)
+    xf = x4.float()
+    check(torch.equal(torch.cdist(xf, tf, p=1).to(torch.int32), out), "cdist != K10 stripe")
+    del out
+    st_main_cdist_ms = cuda_ms(torch, lambda: torch.cdist(xf, tf, p=1), reps=2)
+    xp = x[:rp].contiguous()
+    xpf = xp.float()
+    st_ms = cuda_ms(torch, lambda: distance.l1_block(xp, t))
+    st_plain_ms = cuda_ms(torch, lambda: distance._l1_block_ref(xp, t), reps=1)
+    st_cdist_ms = cuda_ms(torch, lambda: torch.cdist(xpf, tf, p=1), reps=2)
+    pairs, pairs_main = rp * l * d, rc * l * d
+    nb, nb_main = xp.numel() + t.numel() + 4 * rp * l, x4.numel() + t.numel() + 4 * rc * l
+    st = {"ms": st_ms, "plain_ms": st_plain_ms, **bound(nb, 2.0 * pairs),
+          **ceiling(nb, pairs, rate), "library_ms": st_cdist_ms,
+          "shape": f"[{rp}, {d}] x [{l}, {d}]",
+          "ms_main_path_shape": st_main_ms, "library_ms_main_path_shape": st_main_cdist_ms,
+          "main_path_shape": f"[{rc}, {d}] x [{l}, {d}] (phase N's stripe chunk)",
+          "bound_ms_main_path_shape": bound(nb_main, 2.0 * pairs_main)["bound_ms"],
+          "ceiling_ms_main_path_shape": ceiling(nb_main, pairs_main, rate)["ceiling_ms"]}
+    log(f"K10 stripe {st['main_path_shape']}: {st_main_ms:.3f} ms "
+        f"({pairs_main / st_main_ms / 1e9:.2f} T byte pairs/s), bound "
+        f"{st['bound_ms_main_path_shape']:.3f} ms, VABSDIFF4 ceiling "
+        f"{st['ceiling_ms_main_path_shape']:.3f} ms; torch.cdist(p=1) f32 "
+        f"{st_main_cdist_ms:.1f} ms ({st_main_cdist_ms / st_main_ms:.1f}x the kernel) [{card}]")
+    log(f"K10 stripe {st['shape']}: kernel {st_ms:.3f} ms, bound {st['bound_ms']:.3f} ms "
+        f"({st['bound_by']}), ceiling {st['ceiling_ms']:.3f} ms; plain {st_plain_ms:.3f} ms; "
+        f"torch.cdist(p=1) {st_cdist_ms:.3f} ms [{card}]")
+    if st_main_ms >= st_main_cdist_ms:
+        log("K10 stripe: SLOWER than torch.cdist(p=1) at phase N's chunk")
+    del x, t, tf, xf, x4, xs, xp, xpf
+    torch.cuda.empty_cache()
+
+    # P4's second library shard: 4096 rows x 32767, D=48, cap 16, global cols
+    x, t = _u8(torch, gen, (p4[0], 48), dev), _u8(torch, gen, (p4[1], 48), dev)
+    topcap_case(x, t, 16, p4[1], 2 * p4[1], f"K10 top-cap P4 shard ({p4[0]} x {p4[1]}, D=48, "
+                "cap 16)")
+    p4_ms = cuda_ms(torch, lambda: distance.l1_topcap(x, t, 16, col0=p4[1], real_l=2 * p4[1]))
+    log(f"K10 top-cap at P4's shard shape: exact, {p4_ms:.3f} ms [{card}]")
+    del x, t
+    torch.cuda.empty_cache()
+    st["max_abs_err"], tc["max_abs_err"] = es.max, et.max
+    tc["ms_p4_shard"] = p4_ms
+    return st, tc
+
+
 def phase_c_k5(torch, gen, dev, card) -> dict:
     from emosaic_tpu_torch.ops import composite_lab as lab
 
@@ -922,7 +1080,8 @@ def _no_fallback(lab: bool = False):
     else:
         names = [(distance, "l1_argmin_ref"), (composite, "compose_rows_ref"),
                  (distance, "_l1_rows_ref"), (distance, "_seg_topcap_ref"),
-                 (distance, "_coarse_topcap_ref")]
+                 (distance, "_coarse_topcap_ref"), (distance, "_l1_block_ref"),
+                 (distance, "_l1_topcap_ref")]
 
     @contextlib.contextmanager
     def ctx():
@@ -991,9 +1150,35 @@ def phase_c_no_fallback(torch, gen, dev) -> None:
         norepeat._EXACT_BUDGET = saved
     check(res.info["scoring"]["route"] == "adaptive", f"route {res.info['scoring']}")
     check(np.array_equal(res.image, cpu.image), "no-repeat no-fallback run != CPU run")
-    log("no fallback: render_nto1 (mode 4, composite), the dedup route and the "
-        "adaptive no-repeat render (K9, K3) ran with every plain version raising; "
-        "equal to the CPU runs")
+    # K10: the two-level scorer (the fused entry, then the stripe fallback
+    # for a run of near-equal rows in one segment), the stripes and the
+    # dense matrix on u8 rows, with torch.cdist raising too
+    lib = rng.integers(0, 256, size=(3000, 48), dtype=np.uint8)
+    near = lambda n: np.clip(lib[0] + rng.integers(-2, 3, (n, 48)), 0, 255)  # noqa: E731
+    lib[1100:1140] = near(40)
+    blk = rng.integers(0, 256, size=(200, 48), dtype=np.uint8)
+    blk[:50] = near(50)
+    runs = [lambda dv: distance.l1_topk_twolevel(blk, lib, 16, device=dv),
+            lambda dv: distance.l1_topk_stripes(blk, lib, 16, device=dv),
+            lambda dv: (distance.l1_dist_matrix(blk, lib, device=dv),)]
+    cdist = torch.cdist
+
+    def no_cdist(*a, **k):
+        raise AssertionError("a u8 stripe reached torch.cdist")
+
+    torch.cdist = no_cdist
+    try:
+        with _no_fallback():
+            got = [run(dev) for run in runs]
+    finally:
+        torch.cdist = cdist
+    for g, run in zip(got, runs):
+        check(all(np.array_equal(a, b) for a, b in zip(g, run("cpu"))),
+              "a K10 route != the CPU run")
+    log("no fallback: render_nto1 (mode 4, composite), the dedup route, the "
+        "adaptive no-repeat render (K9, K3) and the two-level scorer, the stripes and "
+        "the dense matrix (K10, with torch.cdist raising too) ran with every plain "
+        "version raising; equal to the CPU runs")
 
 
 # ---------------------------------------------------------------------------
@@ -1326,29 +1511,31 @@ def phase_n(torch, gen, dev, card, t=32767, side=4096, t2=16384) -> dict:
     log(f"N K3 on the flagship's own lists {lists_shape} (exact on a 1/16 sample): "
         f"{lists_ms:.3f} ms; reuse {lists_reuse:.3f} pairs per fetched row in groups of 16 "
         f"in min-hash order ({reuse(torch, cc):.3f} in consecutive groups) [{card}]")
-    del xx, cc, tt, got
-    x = blocks[:4096].float()
-    cdist_ms = cuda_ms(torch, lambda: torch.cdist(x, lib.float(), p=1), reps=2)
-    log(f"N torch.cdist(p=1) {list(x.shape)} x {list(lib.shape)} f32: {cdist_ms:.1f} ms "
-        f"[{card}]")
-    del blocks, x
+    del xx, cc, tt, got, blocks
 
     # the worst case: uniform data of the same shape reroutes to two-level
     lib_u = torch.randint(0, 256, lib.shape, dtype=torch.uint8, device=dev, generator=gen)
     blocks_u = torch.randint(0, 256, (g * g, dim * dim * 3), dtype=torch.uint8,
                              device=dev, generator=gen)
     st = {}
+    for kern in KERNELS:
+        kern.launches = 0
     t0 = time.perf_counter()
-    du, ru = distance.l1_topk(blocks_u, lib_u, k, stats=st)
+    with _no_fallback():
+        du, ru = distance.l1_topk(blocks_u, lib_u, k, stats=st)
     worst_s = time.perf_counter() - t0
+    launches_worst = {kern.name: kern.launches for kern in KERNELS}
+    log(f"N launches in the worst case's run: {launches_worst}")
     check(st["route"] == "twolevel (sample gate)", f"worst-case route {st['route']}")
     sample = torch.arange(0, g * g, 257, device=dev)
     ds, rs = distance.l1_topk_stripes(blocks_u[sample], lib_u, k)
     idx = sample.cpu().numpy()
     check(np.array_equal(du[idx], ds) and np.array_equal(ru[idx], rs),
           "worst-case lists != stripes on a sample")
+    fallback = launches_worst["l1_stripe"]
     log(f"N worst case (uniform data) through l1_topk: {worst_s:.3f} s, route "
-        f"{st['route']}; a {idx.size}-block sample equals the stripes [{card}]")
+        f"{st['route']} (K10's fused entry, then {fallback} stripe launches for the rows "
+        f"that did not certify); a {idx.size}-block sample equals the stripes [{card}]")
     del lib_u, blocks_u, lib
     torch.cuda.empty_cache()
 
@@ -1378,7 +1565,8 @@ def phase_n(torch, gen, dev, card, t=32767, side=4096, t2=16384) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "wall_s": wall, "certified": sc["certified"],
             "lists_adaptive_s": ad_s, "lists_twolevel_s": tl_s, "worst_s": worst_s,
-            "cdist_ms": cdist_ms, "consume_device_s": dev_s, "consume_host_s": host_s,
+            "launches_worst": launches_worst, "consume_device_s": dev_s,
+            "consume_host_s": host_s,
             "k3_lists_ms": lists_ms, "k3_lists_reuse": lists_reuse,
             "k3_lists_shape": lists_shape}
 
@@ -2313,10 +2501,11 @@ def phase_s(torch, card) -> dict:
                                  "no_repeat + greedy, same shape", card)
     launches = {k.name: k.launches for k in KERNELS}
     log(f"S launches inside the service: {launches}")
-    for name in ("l1_argmin", "compose"):
+    for name in ("l1_argmin", "compose", "l1_stripe"):
         check(launches[name] > 0, f"S: {name} was not launched by the service")
     log("S scorer kernels reached by the no-repeat requests: "
-        + (", ".join(f"{n} {launches[n]}" for n in ("l1_rows", "coarse_topcap", "seg_topcap")
+        + (", ".join(f"{n} {launches[n]}" for n in ("l1_stripe", "l1_topcap", "l1_rows",
+                                                     "coarse_topcap", "seg_topcap")
                      if launches[n]) or "none"))
 
     # outputs: the service's PNGs against the same work in this process
@@ -2402,6 +2591,7 @@ def main() -> int:
         k3 = phase_c_k3(torch, gen, dev, card, rate)
         k4 = phase_c_k4(torch, gen, dev, card)
         k9 = phase_c_k9(torch, gen, dev, card, fadd_rate(torch, dev, card))
+        k10s, k10t = phase_c_k10(torch, gen, dev, card, rate)
         k5 = phase_c_k5(torch, gen, dev, card)
         k6, k7 = phase_c_k6_k7(torch, gen, dev, card)
         k8 = phase_c_k8(torch, gen, dev, card)
@@ -2429,12 +2619,14 @@ def main() -> int:
         launches_p = p["launches"]
         del d_scene
         log("== F. counters")
+        launches_w = n["launches_worst"]
         for path, counts, names in [("D", launches_d, ("l1_argmin", "compose")),
                                     ("N", launches_n, ("l1_rows", "coarse_topcap", "compose")),
+                                    ("N's worst case", launches_w, ("l1_topcap", "l1_stripe")),
                                     ("H", launches_h, ("l1_rows", "compose")),
-                                    ("S", launches_s, ("l1_argmin", "compose")),
+                                    ("S", launches_s, ("l1_argmin", "compose", "l1_stripe")),
                                     ("P", launches_p, ("l1_argmin", "compose", "l1_rows",
-                                                       "coarse_topcap")),
+                                                       "coarse_topcap", "l1_topcap")),
                                     ("L", launches_l, ("seg_topcap", "coarse_topcap",
                                                        "floor_write", "compose_bulk",
                                                        "compose_bulk2", "band_transpose"))]:
@@ -2455,20 +2647,30 @@ def main() -> int:
         (KERNELS[6], k7, "tools/tpu_r3_experiments3.py:67", launches_l),
         (KERNELS[7], k8, "tools/tpu_bench_composite_variants.py:43", launches_l),
         (KERNELS[8], k9, "tools/tpu_r14_seg8.py:62", launches_n),
+        (KERNELS[9], k10s, "emosaic_tpu/ops/distance.py:1094", launches_w),
+        (KERNELS[10], k10t, "emosaic_tpu/ops/distance.py:1121", launches_w),
     ]:
         rows.append({
             "name": k.name, "route": "cuda",
             "source": str(k.source.relative_to(ROOT)), "replaces": replaces,
             "launches": launches[k.name], "launches_s": launches_s[k.name], **res,
         })
-    for i in (0, 1, 2, 8):  # the kernels of phase P's sharded routes
+    for i in (0, 1, 2, 8, 9, 10):  # the kernels of phase P's sharded routes
         rows[i]["launches_p"] = launches_p[rows[i]["name"]]
+    for i in (9, 10):  # K10's launches in N's render (refills, fallbacks) and in H
+        rows[i].update(launches_n_render=launches_n[rows[i]["name"]],
+                       launches_h=launches_h[rows[i]["name"]])
+    rows[9]["also_replaces"] = ("emosaic_tpu/ops/distance.py:461 (_l1_topk_stripes_jit) and "
+                                ":863 (_l1_matrix_jit): XLA-fused stripes, no Pallas kernel")
+    rows[10]["also_replaces"] = ("the XLA-fused stripe + lax.top_k of _l1_topk_twolevel_jit, no "
+                                 "Pallas kernel; its selection is tools/tpu_r14_seg8.py:62's")
     rows[1]["also_replaces"] = "emosaic_tpu/ops/composite.py:82"
     rows[2]["also_replaces"] = "tools/tpu_r19_flatdma.py:48"
     rows[2]["launches_h"] = launches_h["l1_rows"]
     rows[2].update(ms_flagship_lists=n["k3_lists_ms"], reuse_flagship_lists=n["k3_lists_reuse"],
                    shape_flagship_lists=n["k3_lists_shape"])
-    rows[0]["vabsdiff4_rate_measured"] = rows[2]["vabsdiff4_rate_measured"] = rate["measured"]
+    for i in (0, 2, 9, 10):
+        rows[i]["vabsdiff4_rate_measured"] = rate["measured"]
     rows[2]["flatdma_steps"] = lab["flatdma"]["steps"]
     seg = lab["seg8"]
     rows[3].update(ms_200k_chunk=seg["k4_ms"], plain_ms_200k_chunk=seg["plain_ms"],

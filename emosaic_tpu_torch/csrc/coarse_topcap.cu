@@ -153,7 +153,7 @@ __global__ void __launch_bounds__(NT, 2)
   const long long r = qt * TQ + tid;
   if (r < rows) {
     const int worst = select_segment<CAPL>(dist + tid * ROW_WORDS, nvalid, cap, big,
-                                           cols_seg, out + (r * nseg + s) * cap);
+                                           TableCols{cols_seg}, out + (r * nseg + s) * cap);
     atomicMin(s_min + r, worst);
   }
 }

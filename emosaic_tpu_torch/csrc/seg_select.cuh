@@ -1,14 +1,16 @@
-// The per-segment selection shared by K4 (`seg_topcap.cu`) and K9
-// (`coarse_topcap.cu`): one thread takes one (row, segment), the 128
-// int32 values of that segment in shared memory, and writes the segment's
-// `cap` least keys (value << 32) | col, ascending, the lowest col first
-// among equal values.
+// The per-segment selection shared by K4 (`seg_topcap.cu`), K9
+// (`coarse_topcap.cu`) and K10 (`l1_topcap.cu`): one thread takes one
+// (row, segment), the 128 int32 values of that segment in shared memory,
+// and writes the segment's `cap` least keys (value << 32) | col,
+// ascending, the lowest col first among equal values.
 //
-// Contract of the callers (ops/distance.py `seg_topcap`): within a
-// segment the cols grow with the position, so (value, position) order is
-// the (value, col) order, and the positions whose col is at least real_l
-// (the library's padding rows) are a suffix of the segment; they count as
-// `big` (= _TL_BIG, 2^30).
+// Contract of the callers (ops/distance.py `seg_topcap`, `l1_topcap`):
+// within a segment the cols grow with the position, so (value, position)
+// order is the (value, col) order, and the positions past the segment's
+// `nvalid` (the library's padding rows) are a suffix of the segment; they
+// count as `big` (_TL_BIG = 2^30 for K4 and K9, INT_MAX for K10). A
+// segment's cols come from a table (`TableCols`: K4, K9) or run on from
+// the segment's first col (`RunCols`: K10).
 //
 // Design. A thread keeps a sorted list of CAPL (a power of two >= cap, at
 // most 32) u32 keys (value << 7) | position in registers and inserts
@@ -65,14 +67,26 @@ __device__ __forceinline__ int valid_positions(const int* __restrict__ cols_seg,
   return lo;
 }
 
+// A segment's cols read from a table in device memory.
+struct TableCols {
+  const int* p;
+  __device__ __forceinline__ int operator()(int pos) const { return __ldg(p + pos); }
+};
+
+// A segment whose cols are c0, c0 + 1, ... (a contiguous run of rows).
+struct RunCols {
+  long long c0;
+  __device__ __forceinline__ int operator()(int pos) const { return (int)(c0 + pos); }
+};
+
 __device__ __forceinline__ unsigned long long out_key(int value, int col) {
   return ((unsigned long long)(unsigned)value << 32) | (unsigned)col;
 }
 
 // The exact general path: ranks of the int64 keys (value << 7) | position.
+template <class Cols>
 __device__ __noinline__ int select_rank(const int* v, int nvalid, int cap, int big,
-                                        const int* __restrict__ cols_seg,
-                                        unsigned long long* __restrict__ out) {
+                                        Cols cols, unsigned long long* __restrict__ out) {
   int worst = 0;
   for (int p = 0; p < SEG; ++p) {
     const int vp = p < nvalid ? v[p] : big;
@@ -83,7 +97,7 @@ __device__ __noinline__ int select_rank(const int* v, int nvalid, int cap, int b
       rank += (((long long)vq << 7) | q) < kp;
     }
     if (rank < cap) {
-      out[rank] = out_key(vp, __ldg(cols_seg + p));
+      out[rank] = out_key(vp, cols(p));
       if (rank == cap - 1) worst = vp;
     }
   }
@@ -91,15 +105,16 @@ __device__ __noinline__ int select_rank(const int* v, int nvalid, int cap, int b
 }
 
 // Select one segment: v = its 128 values in shared memory (16-byte
-// aligned), nvalid from `valid_positions`, out = its `cap` output slots.
+// aligned), nvalid the positions that are not padding (`valid_positions`
+// for a table of cols), cols the segment's cols, out = its `cap` output
+// slots.
 // Returns the value of the cap-th key (the worst kept). CAPL = 0 takes the
 // rank path for every segment (cap > 32).
-template <int CAPL>
+template <int CAPL, class Cols>
 __device__ __forceinline__ int select_segment(const int* v, int nvalid, int cap, int big,
-                                              const int* __restrict__ cols_seg,
-                                              unsigned long long* __restrict__ out) {
+                                              Cols cols, unsigned long long* __restrict__ out) {
   if constexpr (CAPL == 0) {
-    return select_rank(v, nvalid, cap, big, cols_seg, out);
+    return select_rank(v, nvalid, cap, big, cols, out);
   } else {
     unsigned l[CAPL];
 #pragma unroll
@@ -118,14 +133,14 @@ __device__ __forceinline__ int select_segment(const int* v, int nvalid, int cap,
         insert(l, ok ? (x[i] << 7) | p : BIG_KEY | p);
       }
     }
-    if (seen >= VAL_LIMIT) return select_rank(v, nvalid, cap, big, cols_seg, out);
+    if (seen >= VAL_LIMIT) return select_rank(v, nvalid, cap, big, cols, out);
     int worst = 0;
 #pragma unroll
     for (int j = 0; j < CAPL; ++j) {
       if (j < cap) {
         const unsigned key = l[j];
         const int value = (key >> 7) == VAL_LIMIT ? big : (int)(key >> 7);
-        out[j] = out_key(value, __ldg(cols_seg + (key & (SEG - 1))));
+        out[j] = out_key(value, cols((int)(key & (SEG - 1))));
         if (j == cap - 1) worst = value;
       }
     }

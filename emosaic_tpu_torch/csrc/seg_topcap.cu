@@ -76,7 +76,8 @@ __global__ void __launch_bounds__(NT)
   asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();
   if (t < nc)
-    select_segment<CAPL>(sv + t * ROW_WORDS, nvalid, cap, big, cols_seg, out + w * cap);
+    select_segment<CAPL>(sv + t * ROW_WORDS, nvalid, cap, big, TableCols{cols_seg},
+                         out + w * cap);
 }
 
 template <int CAPL>

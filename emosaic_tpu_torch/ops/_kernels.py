@@ -165,8 +165,23 @@ COARSE_TOPCAP = CudaKernel(
     [_I, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _I,
      ctypes.c_longlong, _I, ctypes.c_longlong, _I, _P],
 )
+_L = ctypes.c_longlong
+#: csrc/l1_topcap.cu, the dense stripe (see ops/distance.py `l1_block`)
+L1_STRIPE = CudaKernel(
+    "l1_stripe",
+    "emosaic_l1_stripe",
+    [_I, _P, _P, _P, _L, _L, _I, _L, _L, _P],
+    source="l1_topcap",
+)
+#: csrc/l1_topcap.cu, the fused per-segment top-cap (see ops/distance.py
+#: `l1_topcap`)
+L1_TOPCAP = CudaKernel(
+    "l1_topcap",
+    "emosaic_l1_topcap",
+    [_I, _P, _P, _P, _L, _L, _I, _L, _L, _I, _L, _L, _I, _I, _P],
+)
 KERNELS = (L1_ARGMIN, COMPOSE, L1_ROWS, SEG_TOPCAP, FLOOR_WRITE, COMPOSE_BULK,
-           COMPOSE_BULK2, BAND_TRANSPOSE, COARSE_TOPCAP)
+           COMPOSE_BULK2, BAND_TRANSPOSE, COARSE_TOPCAP, L1_STRIPE, L1_TOPCAP)
 
 
 def build_all(kernels=KERNELS, force: bool = False) -> dict:

@@ -12,7 +12,11 @@ The torch counterpart of `emosaic_tpu/ops/distance.py`.
   `l1_topk_twolevel`, `l1_topk_adaptive`, `l1_topk_streamed`): exact k
   nearest rows per block for `--randomize` (rendering.rs:168-185) and the
   no-repeat candidate lists (rendering.rs:307-321). The dense distance
-  stripes come from `l1_block`; the adaptive scorer's shortlist rescore is
+  stripes come from `l1_block`, on the card the hand-written kernel K10
+  `csrc/l1_topcap.cu` (its stripe entry; `_l1_block_ref` its plain
+  version); the two-level scorer's stage 1 is K10's fused entry
+  `l1_topcap` (each 128-row segment's least keys without the stripe;
+  `_l1_topcap_ref` its plain version); the adaptive scorer's shortlist rescore is
   the hand-written kernel K3 `csrc/l1_rows.cu` (`l1_rows`), with
   `_l1_rows_ref` its plain version for CPU tensors; its coarse pass
   scores the projected library and keeps each segment's least keys in one
@@ -20,7 +24,9 @@ The torch counterpart of `emosaic_tpu/ops/distance.py`.
   `_coarse_topcap_ref` (`l1_block`, then `_seg_topcap_ref`) its plain
   version. K4 `csrc/seg_topcap.cu` (`seg_topcap`, plain version
   `_seg_topcap_ref`) selects from a given stripe (`seg_topk`); K4 and K9
-  share one selection routine (`csrc/seg_select.cuh`).
+  share one selection routine (`csrc/seg_select.cuh`) with K10.
+- `l1_argmin_stripes`, `l1_argmin_xla`: the JAX package's other exact
+  argmins under their names (over K10's stripes, and the plain scan).
 - `l1_topk_hybrid`, `l1_argmin_hybrid` (`--matcher hybrid`) and
   `l2_argmin` (`--metric l2`): the approximate squared-L2 prefilter with
   an exact-L1 rescore on K3, and the squared-L2 argmin.
@@ -65,7 +71,14 @@ import time
 import numpy as np
 import torch
 
-from emosaic_tpu_torch.ops._kernels import COARSE_TOPCAP, L1_ARGMIN, L1_ROWS, SEG_TOPCAP
+from emosaic_tpu_torch.ops._kernels import (
+    COARSE_TOPCAP,
+    L1_ARGMIN,
+    L1_ROWS,
+    L1_STRIPE,
+    L1_TOPCAP,
+    SEG_TOPCAP,
+)
 
 I32_MAX = 2**31 - 1
 _MASK32 = 0xFFFFFFFF
@@ -323,12 +336,17 @@ def l1_argmin(
     return _l1_argmin_cuda(blocks, lib)
 
 
+# the JAX package's pure-XLA argmin is the chunked scan that
+# `l1_argmin_ref` ports; the name stays for code written against its API
+l1_argmin_xla = l1_argmin_ref
+
+
 # ---------------------------------------------------------------------------
-# Dense distance stripes and the exact top-k core
+# Dense distance stripes (K10) and the exact top-k core
 # ---------------------------------------------------------------------------
 
-#: f32 bytes of one library chunk of `l1_block` on the card (the cdist
-#: operand; its output is bounded by the callers' row chunks)
+#: f32 bytes of one library chunk of `l1_block`'s cdist branch (integer
+#: rows that are not u8; its output is bounded by the callers' row chunks)
 _BLOCK_F32_BYTES = 1 << 30
 #: int32 bytes of one [bc, L] stripe: callers chunk their query rows so a
 #: stripe (and its f32 twin inside cdist) stays under this
@@ -344,24 +362,46 @@ def _stripe_rows(n: int, width: int = 4) -> int:
 def l1_block(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """dist[i, j] = sum_d |x[i, d] - t[j, d]| as int32 [bx, bt] on x's device.
 
-    x, t: integer tensors on one device (u8 vectors, or the int32 group
-    sums of the adaptive scorer) whose L1 sums stay below 2^24. This is
-    the dense stripe the JAX package leaves to XLA's fusion
-    (`_stripe_score_env`, `_min_sum_stripe`), not a Pallas kernel. On the
-    card it is `torch.cdist(p=1)` in f32, chunked over library rows:
-    exact, because every term is an integer and every partial sum is at
-    most 255 * 49152 < 2^24. On the CPU it is chunked int32 arithmetic.
+    x, t: rows on one device, u8 vectors or the int32 group sums of the
+    adaptive scorer. This is the dense stripe the JAX package leaves to
+    XLA's fusion (`_stripe_score_env`, `_min_sum_stripe`), not a Pallas
+    kernel. On the card, u8 rows go to K10's stripe entry
+    (`csrc/l1_topcap.cu`), in exact integer arithmetic. Other rows go to
+    `torch.cdist(p=1)` in f32, chunked over library rows; that is exact
+    while every L1 sum stays below 2^24, as group sums of u8 cells do. On
+    the card only K9's plain version (`_coarse_topcap_ref`) and
+    `probes/seg8.py` send such rows. On the CPU it is `_l1_block_ref`,
+    K10's plain version.
     """
+    if x.dim() != 2 or t.dim() != 2 or x.shape[1] != t.shape[1]:
+        raise ValueError(f"shapes {tuple(x.shape)} / {tuple(t.shape)}")
+    if x.device != t.device:
+        raise ValueError(f"devices differ: {x.device} / {t.device}")
+    if x.device.type == "cpu":
+        return _l1_block_ref(x, t)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype == torch.uint8 and t.dtype == torch.uint8:
+        return _l1_stripe_cuda(x, t)
     bx, d = x.shape
     bt = t.shape[0]
     out = torch.empty((bx, bt), dtype=torch.int32, device=x.device)
     if bx == 0 or bt == 0:
         return out
-    if x.device.type == "cuda":
-        xf = x.float()
-        ch = max(1, min(_BLOCK_F32_BYTES // (4 * max(d, 1)), (1 << 28) // bx))
-        for t0 in range(0, bt, ch):
-            out[:, t0 : t0 + ch] = torch.cdist(xf, t[t0 : t0 + ch].float(), p=1)
+    xf = x.float()
+    ch = max(1, min(_BLOCK_F32_BYTES // (4 * max(d, 1)), (1 << 28) // bx))
+    for t0 in range(0, bt, ch):
+        out[:, t0 : t0 + ch] = torch.cdist(xf, t[t0 : t0 + ch].float(), p=1)
+    return out
+
+
+def _l1_block_ref(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of K10's stripe: `l1_block` by chunked int32
+    abs-diff sums (cast first: u8 arithmetic wraps), on any device."""
+    bx, d = x.shape
+    bt = t.shape[0]
+    out = torch.empty((bx, bt), dtype=torch.int32, device=x.device)
+    if bx == 0 or bt == 0:
         return out
     xi = x.to(torch.int32)
     ti = t.to(torch.int32)
@@ -372,6 +412,67 @@ def l1_block(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
             out[b0 : b0 + bc, t0 : t0 + lc] = (
                 (xc - ti[None, t0 : t0 + lc, :]).abs().sum(-1, dtype=torch.int32)
             )
+    return out
+
+
+#: K10's tiles (`csrc/l1_topcap.cu`): query rows and library rows per
+#: block (a library tile is one segment), and the 4-byte words of its
+#: two-stage ring (query and library tiles of 16-word steps, rows padded
+#: by 4 words)
+_K10_T = 128
+_K10_RING_WORDS = 2 * 2 * _K10_T * (16 + 4)
+
+
+def _k10_plan(rows: int, l: int, d: int) -> tuple[int, int, int, int]:
+    """K10's launch for `rows` query rows against l library rows of d
+    bytes: (row width in 4-byte words, padded to whole 16-byte vectors;
+    query tiles; blocks, one per (query tile, library tile); shared-memory
+    bytes a block of the top-cap entry: the ring, then over it the tile's
+    int32 sums at the selection's stride). The kernel walks the blocks in
+    groups of 8 query tiles, library tile by library tile in a group."""
+    dw = -(-d // 16) * 4
+    ntq = -(-rows // _K10_T)
+    ntl = -(-l // _K10_T)
+    return dw, ntq, ntq * ntl, 4 * max(_K10_RING_WORDS, _K10_T * _SEG_ROW_WORDS)
+
+
+def _k10_rows(l: int) -> int:
+    """Query rows per K10 launch against l library rows: whole query tiles,
+    at most 2^31 - 1 blocks."""
+    return max(1, I32_MAX // -(-l // _K10_T)) * _K10_T
+
+
+def _k10_operands(x: torch.Tensor, t: torch.Tensor):
+    """x and t zero-padded to whole 16-byte vectors and 16-byte aligned, as
+    K10 reads them, and the padded width in 4-byte words."""
+    dw = _k10_plan(1, 1, x.shape[1])[0]
+    return _pad_words(x, 4 * dw, 16), _pad_words(t, 4 * dw, 16), dw
+
+
+def _l1_stripe_cuda(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    bx, d = x.shape
+    bt = t.shape[0]
+    out = torch.empty((bx, bt), dtype=torch.int32, device=x.device)
+    if bx == 0 or bt == 0:
+        return out
+    q, tt, dw = _k10_operands(x, t)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    step = _k10_rows(bt)
+    for r0 in range(0, bx, step):
+        rows = min(step, bx - r0)
+        _, ntq, blocks, _ = _k10_plan(rows, bt, d)
+        L1_STRIPE.launch(
+            x.device.index,
+            ctypes.c_void_p(q[r0 : r0 + rows].data_ptr()),
+            ctypes.c_void_p(tt.data_ptr()),
+            ctypes.c_void_p(out[r0 : r0 + rows].data_ptr()),
+            rows,
+            bt,
+            dw,
+            ntq,
+            blocks,
+            ctypes.c_void_p(stream),
+        )
     return out
 
 
@@ -435,6 +536,31 @@ def l1_topk_stripes(blocks, lib, k: int, *, device=None):
             out_d[b0 : b0 + bc] = _host(dd)
             out_r[b0 : b0 + bc] = _host(rr)
     return _pad_topk(out_d, out_r, b, k, kk)
+
+
+def l1_argmin_stripes(
+    blocks: torch.Tensor, lib: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact L1 nearest library row per block through `l1_block` stripes
+    (K10's stripe entry on the card): the least packed (distance, row) key
+    of each stripe row, so the lowest row wins ties. The JAX package's
+    high-D argmin under its name; the contract of `l1_argmin` (u8 tensors
+    on one device; (dist [B] int32, row [B] int32) on it)."""
+    if blocks.dtype != torch.uint8 or lib.dtype != torch.uint8:
+        raise TypeError(f"l1_argmin_stripes takes uint8, got {blocks.dtype}/{lib.dtype}")
+    if blocks.dim() != 2 or lib.dim() != 2 or blocks.shape[1] != lib.shape[1]:
+        raise ValueError(f"shapes {tuple(blocks.shape)} / {tuple(lib.shape)}")
+    b, l = blocks.shape[0], lib.shape[0]
+    if l == 0:
+        raise ValueError("empty library")
+    dist = torch.empty((b,), dtype=torch.int32, device=blocks.device)
+    row = torch.empty((b,), dtype=torch.int32, device=blocks.device)
+    cols = torch.arange(l, device=blocks.device)
+    bc = _stripe_rows(l, 8)
+    for b0 in range(0, b, bc):
+        key = _keys(l1_block(blocks[b0 : b0 + bc], lib), cols).amin(dim=1)
+        dist[b0 : b0 + bc], row[b0 : b0 + bc] = _unkey(key)
+    return dist, row
 
 
 def _stripe_fallback(out_d, out_r, bad, blocks, lib, kk: int, *, device=None):
@@ -528,15 +654,123 @@ _TL_BIG = 2**30
 _STRIPE_BC = 128
 
 
+def _l1_topcap_ref(x: torch.Tensor, t: torch.Tensor, cap: int, col0: int,
+                   real_l: int) -> torch.Tensor:
+    """Plain torch version of K10's fused entry: the stripe
+    (`_l1_block_ref`), the last segment's missing positions and the cols at
+    or past real_l set to I32_MAX, then each 128-position segment's `cap`
+    least packed keys by a torch.topk, in bounded row chunks. Returns int64
+    [r, nseg, cap]."""
+    rows, l = x.shape[0], t.shape[0]
+    nseg = -(-l // _TL_SEG)
+    lp = nseg * _TL_SEG
+    cols = torch.arange(col0, col0 + lp, device=x.device)
+    out = torch.empty((rows, nseg, cap), dtype=torch.int64, device=x.device)
+    bc = _stripe_rows(lp, 8)
+    for r0 in range(0, rows, bc):
+        dist = torch.nn.functional.pad(_l1_block_ref(x[r0 : r0 + bc], t), (0, lp - l),
+                                       value=I32_MAX)
+        dist.masked_fill_(cols >= real_l, I32_MAX)
+        out[r0 : r0 + bc] = _least(_keys(dist, cols).view(-1, nseg, _TL_SEG), cap)
+        del dist
+    return out
+
+
+def _l1_topcap_cuda(x: torch.Tensor, t: torch.Tensor, cap: int, col0: int,
+                    real_l: int) -> torch.Tensor:
+    rows, d = x.shape
+    l = t.shape[0]
+    nseg = -(-l // _TL_SEG)
+    out = torch.empty((rows, nseg, cap), dtype=torch.int64, device=x.device)
+    if rows == 0:
+        return out
+    q, tt, dw = _k10_operands(x, t)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    step = _k10_rows(l)
+    for r0 in range(0, rows, step):
+        r = min(step, rows - r0)
+        _, ntq, blocks, smem = _k10_plan(r, l, d)
+        L1_TOPCAP.launch(
+            x.device.index,
+            ctypes.c_void_p(q[r0 : r0 + r].data_ptr()),
+            ctypes.c_void_p(tt.data_ptr()),
+            ctypes.c_void_p(out[r0 : r0 + r].data_ptr()),
+            r,
+            l,
+            dw,
+            ntq,
+            blocks,
+            cap,
+            col0,
+            min(real_l, col0 + l),
+            I32_MAX,
+            smem,
+            ctypes.c_void_p(stream),
+        )
+    return out
+
+
+def l1_topcap(x: torch.Tensor, t: torch.Tensor, cap: int, *, col0: int = 0,
+              real_l: int | None = None) -> torch.Tensor:
+    """Stage 1 of the two-level top-k: for u8 query rows x [r, D] against
+    library rows t [L, D] (L >= 1) on one device, where row j of t has the
+    col col0 + j, each 128-row segment of t keeps its `cap` least keys
+    (distance << 32) | col, ascending, the lowest col first among equal
+    distances. Positions whose col is at least real_l (default col0 + L),
+    and the last segment's positions past L, are padding with the key
+    (I32_MAX << 32) | col. 1 <= cap <= 128; col0 + 128 * nseg must fit an
+    int32. Returns int64 [r, nseg, cap], nseg = ceil(L / 128).
+
+    A CUDA tensor goes to K10's fused entry (`csrc/l1_topcap.cu`), which
+    never writes the [r, L] distance stripe; a CPU tensor to
+    `_l1_topcap_ref`.
+    """
+    if x.dtype != torch.uint8 or t.dtype != torch.uint8:
+        raise TypeError(f"l1_topcap takes uint8, got {x.dtype}/{t.dtype}")
+    if x.dim() != 2 or t.dim() != 2 or x.shape[1] != t.shape[1] or t.shape[0] == 0:
+        raise ValueError(f"shapes {tuple(x.shape)} / {tuple(t.shape)}")
+    if not 1 <= cap <= _SEG_CAP_MAX:
+        raise ValueError(f"cap must be in 1..{_SEG_CAP_MAX}, got {cap}")
+    nseg = -(-t.shape[0] // _TL_SEG)
+    if col0 < 0 or col0 + nseg * _TL_SEG > I32_MAX:
+        raise ValueError(f"cols {col0}..{col0 + nseg * _TL_SEG} do not fit int32")
+    if x.device != t.device:
+        raise ValueError(f"devices differ: {x.device} / {t.device}")
+    real_l = col0 + t.shape[0] if real_l is None else real_l
+    if x.device.type == "cpu":
+        return _l1_topcap_ref(x, t, cap, col0, real_l)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return _l1_topcap_cuda(x, t, cap, col0, real_l)
+
+
+def _twolevel_rows(nseg: int, cap: int) -> int:
+    """Query rows per two-level chunk: its [rows, nseg, cap] survivor keys
+    stay under `_AD_SURV_BYTES`."""
+    return max(1, _AD_SURV_BYTES // (8 * nseg * cap))
+
+
+def _twolevel_keys(x, t, kk: int, cap: int, col0: int = 0, real_l: int | None = None):
+    """Both stages for the rows x against t (cols col0.., padding from
+    real_l): `l1_topcap`, then the kk least survivors. Returns (keys [r, kk]
+    int64 ascending, ok [r] bool): a row is exact when every segment's
+    cap-th kept distance is strictly above its kk-th (a truncated tie
+    could hide a lower col)."""
+    seg = l1_topcap(x, t, cap, col0=col0, real_l=real_l)
+    sel = _least(seg.flatten(1), kk)
+    ok = ((seg[:, :, cap - 1] >> 32) > (sel[:, kk - 1 :] >> 32)).all(dim=1)
+    return sel, ok
+
+
 def l1_topk_twolevel(blocks, lib, k: int, *, device=None):
     """Exact k nearest rows per block, same contract and results as
     `l1_topk_stripes`, via the segmented two-level selection with per-row
-    certification and stripe fallback."""
+    certification and stripe fallback. Stage 1 is `l1_topcap` (K10's fused
+    entry on the card)."""
     dev = _device_of(blocks, device)
     blocks, lib = _as_u8(blocks), _as_u8(lib)
     b, l = blocks.shape[0], lib.shape[0]
-    lp = -(-l // _TL_SEG) * _TL_SEG
-    nseg = lp // _TL_SEG
+    nseg = -(-l // _TL_SEG)
     kk = min(k, l)
     if kk > min(l, nseg * _TL_CAP) or b == 0:
         return l1_topk_stripes(blocks, lib, k, device=dev)
@@ -544,19 +778,13 @@ def l1_topk_twolevel(blocks, lib, k: int, *, device=None):
     out_d = np.empty((b, kk), np.int32)
     out_r = np.empty((b, kk), np.int32)
     ok = np.empty(b, bool)
-    cols = torch.arange(lp, device=dev)
-    bc = _stripe_rows(lp, 8)
+    bc = _twolevel_rows(nseg, _TL_CAP)
     for b0 in range(0, b, bc):
-        dist = l1_block(x[b0 : b0 + bc], t)
-        if lp > l:  # the last segment's missing columns never win
-            dist = torch.nn.functional.pad(dist, (0, lp - l), value=I32_MAX)
-        seg = _least(_keys(dist, cols).view(-1, nseg, _TL_SEG), _TL_CAP)
-        del dist
-        dd, rr = _unkey(_least(seg.flatten(1), kk))
-        worst = (seg[:, :, _TL_CAP - 1] >> 32).to(torch.int32)
+        sel, good = _twolevel_keys(x[b0 : b0 + bc], t, kk, _TL_CAP)
+        dd, rr = _unkey(sel)
         out_d[b0 : b0 + bc] = _host(dd)
         out_r[b0 : b0 + bc] = _host(rr)
-        ok[b0 : b0 + bc] = _host((worst > dd[:, kk - 1 :]).all(dim=1))
+        ok[b0 : b0 + bc] = _host(good)
     bad = np.flatnonzero(~ok)
     out_d, out_r = _stripe_fallback(out_d, out_r, bad, x, t, kk, device=dev)
     return _pad_topk(out_d, out_r, b, k, kk)

@@ -5,8 +5,9 @@ contract: uint8 arrays (or tensors) in, host numpy out, bit-identical to
 the single-device routes, the lowest-row tie-break included.
 
 - Source blocks split over "data", the library over "model". Each shard
-  runs the port's own kernel on its slice (K1 `l1_argmin`; the stripe
-  top-k; the adaptive scorer's K9 coarse pass and K3 rescore), its
+  runs the port's own kernel on its slice (K1 `l1_argmin`; the
+  two-level top-k on K10, with the dense stripe for rows that do not
+  certify; the adaptive scorer's K9 coarse pass and K3 rescore), its
   results take global row numbers, and the shards fold in (distance,
   global row) order: an associative combine.
 - Padding rows are copies of row 0 (of the blocks, of the library) at
@@ -18,7 +19,9 @@ the single-device routes, the lowest-row tie-break included.
   alike, so all return the same arrays.
 - Within a process the shards' device work is enqueued with no host sync
   up to the fold (no `.cpu()`, `.item()` or `_host()` in the per-shard
-  loops), so a process with several cards overlaps its shards. Only one
+  loops; the top-k's fallback looks for uncertified rows once every
+  shard's stage 1 is enqueued), so a process with several cards overlaps
+  its shards. Only one
   card has been available to measure: this is a design rule, not a
   measured speed.
 
@@ -228,7 +231,7 @@ def sharded_l1_argmin_ring(blocks, lib, mesh: Mesh, *, prepared=None):
     return _host(both[0])[:b], _host(both[1])[:b]
 
 
-def _local_topk(x, t, k: int, row_offset: int, real_l: int) -> torch.Tensor:
+def _local_dense(x, t, k: int, row_offset: int, real_l: int) -> torch.Tensor:
     """Per-shard stripe top-k with GLOBAL rows: x [rows, D] against this
     shard's slice t (global rows row_offset.., padding at real_l and past
     masked to I32_MAX). Returns the k least packed (distance, global row)
@@ -245,11 +248,51 @@ def _local_topk(x, t, k: int, row_offset: int, real_l: int) -> torch.Tensor:
     return out
 
 
+def _shard_cap(k: int, ls: int) -> int:
+    """Stage-1 survivors per segment of a shard of ls rows: 16 where the k
+    nearest put more than one member in an average segment (k * 128 > ls),
+    else the two-level scorer's 8. The result is exact either way; the cap
+    only sets how many rows fall back to the dense stripe."""
+    return 16 if k * dd._TL_SEG > ls else dd._TL_CAP
+
+
+def _local_topk(x, t, k: int, row_offset: int, real_l: int):
+    """The same keys as `_local_dense`, through the two-level selection
+    (`l1_topcap`, K10's fused entry on the card, with the shard's global
+    cols) where k is at most the shard's valid rows and its survivors.
+    Returns (keys [rows, k] int64, ok [rows] bool or None): rows whose ok
+    is False did not certify and take `_local_fallback`. Enqueues device
+    work only (no host sync)."""
+    rows, ls = x.shape[0], t.shape[0]
+    nseg = -(-ls // dd._TL_SEG)
+    cap = _shard_cap(k, ls)
+    if rows == 0 or k > min(real_l - row_offset, ls, nseg * cap):
+        return _local_dense(x, t, k, row_offset, real_l), None
+    out = torch.empty((rows, k), dtype=torch.int64, device=x.device)
+    ok = torch.empty((rows,), dtype=torch.bool, device=x.device)
+    bc = dd._twolevel_rows(nseg, cap)
+    for r0 in range(0, rows, bc):
+        out[r0 : r0 + bc], ok[r0 : r0 + bc] = dd._twolevel_keys(
+            x[r0 : r0 + bc], t, k, cap, row_offset, real_l)
+    return out, ok
+
+
+def _local_fallback(keys, ok, x, t, k: int, row_offset: int, real_l: int) -> None:
+    """Recompute the rows of `keys` that did not certify with the dense
+    stripe (`_local_dense`), in place. Syncs with the host once."""
+    if ok is None:
+        return
+    bad = torch.nonzero(~ok).flatten()
+    if bad.numel():
+        keys[bad] = _local_dense(x[bad], t, k, row_offset, real_l)
+
+
 def sharded_l1_topk(blocks, lib, k: int, mesh: Mesh, *, prepared=None):
     """Exact k nearest rows per block over a ("data", "model") mesh.
 
     Blocks split over "data", the library over "model"; each shard's
-    stripe top-k (`l1_block`, packed keys) is merged by the same key sort,
+    top-k (the two-level selection on K10 where it applies, else the
+    `l1_block` stripe; packed keys) is merged by the same key sort,
     bit-identical to `ops.distance.l1_topk_stripes` including tie order
     and the I32_MAX/row-0 padding when k > L. Returns host numpy
     (dists [B, k] int32, rows [B, k] int32).
@@ -277,11 +320,17 @@ def sharded_l1_topk(blocks, lib, k: int, mesh: Mesh, *, prepared=None):
     # always hold the true top kk (if ls < kk then M * ls >= L >= kk)
     k_loc = min(kk, ls)
     xs, ts = _Slices(blocks_p, blocks_p.shape[0] // n_data), _Slices(lib_p, ls)
-    local = {}
+    local, pending = {}, []
     for pos in mesh.local_positions():
         i, m = divmod(pos, n_model)
         dev = mesh.device(pos)
-        local[pos] = _local_topk(xs(i, dev), ts(m, dev), k_loc, m * ls, l)
+        x, t = xs(i, dev), ts(m, dev)
+        local[pos], ok = _local_topk(x, t, k_loc, m * ls, l)
+        pending.append((local[pos], ok, x, t, m * ls))
+    # every shard's stage 1 is enqueued before the first host sync
+    for keys, ok, x, t, off in pending:
+        _local_fallback(keys, ok, x, t, k_loc, off, l)
+    del pending
     parts = exchange(local, home)
     keys = torch.cat([
         dd._least(torch.cat([parts[i * n_model + m].to(home) for m in range(n_model)], 1), kk)

@@ -1,4 +1,4 @@
-"""K1 to K9 against their plain torch versions on an NVIDIA GPU, and the
+"""K1 to K10 against their plain torch versions on an NVIDIA GPU, and the
 sharded routes of `parallel/` on a virtual mesh of the one card.
 
 A CUDA kernel has no CPU mode, so these tests are marked `cuda` and skip
@@ -22,6 +22,8 @@ from emosaic_tpu_torch.ops._kernels import (
     FLOOR_WRITE,
     L1_ARGMIN,
     L1_ROWS,
+    L1_STRIPE,
+    L1_TOPCAP,
     SEG_TOPCAP,
 )
 
@@ -332,6 +334,115 @@ def test_k9_matches_plain(cuda, kind, cap, l, d, g):
     assert COARSE_TOPCAP.launches == before + 1
     wk, ws = distance._coarse_topcap_ref(xp, cl[0], cl[1], cap, cl[2])
     assert torch.equal(keys, wk) and torch.equal(s_min, ws)
+
+
+@pytest.mark.parametrize(
+    "d,r,l",
+    [(d, r, l) for d in (3, 12, 48, 768, 3072) for r, l in ((1, 1), (130, 300), (257, 1000))]
+    + [(49152, 130, 300)],
+)
+def test_k10_stripe_matches_plain(cuda, d, r, l):
+    """K10's stripe entry (`l1_block` on u8 rows) against `_l1_block_ref`:
+    rows and library rows not multiples of 128, D not a multiple of 16."""
+    rng = np.random.default_rng(d + r + l)
+    x, t = _u8(rng, (r, d), cuda), _u8(rng, (l, d), cuda)
+    before = L1_STRIPE.launches
+    got = distance.l1_block(x, t)
+    torch.cuda.synchronize()
+    assert L1_STRIPE.launches == before + 1
+    assert torch.equal(got, distance._l1_block_ref(x, t))
+
+
+def _k10_case(rng, kind, r, l, d, dev):
+    if kind == "storm":  # four distinct rows: every segment's cap cuts a tie
+        t = torch.from_numpy(np.tile(rng.integers(0, 256, size=(4, d), dtype=np.uint8),
+                                     (-(-l // 4), 1))[:l]).to(dev)
+    else:
+        t = _u8(rng, (l, d), dev)
+    x = _u8(rng, (r, d), dev)
+    x[0] = t[l // 2]
+    return x, t
+
+
+@pytest.mark.parametrize("cap", [1, 2, 5, 8, 16, 31, 32, 33])
+@pytest.mark.parametrize("kind", ["uniform", "storm"])
+@pytest.mark.parametrize("d", [3, 12, 48, 768, 3072])
+def test_k10_topcap_matches_plain(cuda, cap, kind, d):
+    """K10's fused entry against `_l1_topcap_ref`, bit for bit: a padded
+    last segment (L = 1000), 130 query rows."""
+    rng = np.random.default_rng(cap * 7 + d)
+    x, t = _k10_case(rng, kind, 130, 1000, d, cuda)
+    before = L1_TOPCAP.launches
+    got = distance.l1_topcap(x, t, cap)
+    torch.cuda.synchronize()
+    assert L1_TOPCAP.launches == before + 1
+    assert torch.equal(got, distance._l1_topcap_ref(x, t, cap, 0, 1000))
+
+
+@pytest.mark.parametrize("col0,real_l", [(0, 700), (1000, 1200), (4096, 10**6), (128, 128)])
+def test_k10_topcap_col0_and_real_l(cuda, col0, real_l):
+    """A shard's global cols (col0 > 0) and padding from real_l inside it,
+    in the middle of a segment or before the shard's first row."""
+    rng = np.random.default_rng(col0)
+    x, t = _k10_case(rng, "uniform", 300, 640, 48, cuda)
+    for cap in (8, 16, 40):
+        got = distance.l1_topcap(x, t, cap, col0=col0, real_l=real_l)
+        assert torch.equal(got, distance._l1_topcap_ref(x, t, cap, col0, real_l))
+
+
+def test_k10_wide_rows_take_the_rank_path(cuda):
+    """Distances past 2^24 (D = 65800, all-0 queries against all-255 rows):
+    the exact rank path, ties over the whole library, lowest col first."""
+    x = torch.zeros((3, 65800), dtype=torch.uint8, device=cuda)
+    t = torch.full((300, 65800), 255, dtype=torch.uint8, device=cuda)
+    t[290, 7] = 254
+    got = distance.l1_topcap(x, t, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, distance._l1_topcap_ref(x, t, 8, 0, 300))
+    assert int(got[0, 2, 0] >> 32) == 255 * 65800 - 1 and int(got[0, 2, 0] & 0xFFFFFFFF) == 290
+
+
+def test_k10_routes_equal_the_cpu(cuda):
+    """The two-level scorer (K10's fused entry, then the stripe fallback on
+    K10's stripe) and the mesh's stripe top-k on a virtual card mesh equal
+    the CPU's results."""
+    from emosaic_tpu_torch.parallel import make_mesh, sharded_l1_topk
+
+    rng = np.random.default_rng(10)
+    lib = rng.integers(0, 256, size=(3000, 48), dtype=np.uint8)
+    base = rng.integers(0, 256, size=48)
+    lib[1100:1140] = np.clip(base + rng.integers(-2, 3, (40, 48)), 0, 255)
+    blocks = rng.integers(0, 256, size=(200, 48), dtype=np.uint8)
+    blocks[:50] = np.clip(base + rng.integers(-2, 3, (50, 48)), 0, 255)
+    before = (L1_TOPCAP.launches, L1_STRIPE.launches)
+    got = distance.l1_topk_twolevel(blocks, lib, 16, device=cuda)
+    assert L1_TOPCAP.launches > before[0] and L1_STRIPE.launches > before[1]
+    want = distance.l1_topk_twolevel(blocks, lib, 16, device="cpu")
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    mesh = make_mesh(4, model=2, devices=[cuda] * 4)
+    before = L1_TOPCAP.launches
+    got = sharded_l1_topk(torch.from_numpy(blocks).to(cuda), torch.from_numpy(lib).to(cuda),
+                          16, mesh)
+    assert L1_TOPCAP.launches == before + 4
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("d", [12, 48, 3072])
+def test_l1_argmin_stripes_on_k10_equals_k1(cuda, d):
+    """The JAX package's stripe argmin under its name, on K10's stripe: the
+    same (distance, lowest row) as K1, on a library with repeated rows."""
+    rng = np.random.default_rng(d)
+    lib = _u8(rng, (700, d), cuda).repeat(3, 1)
+    blocks = _u8(rng, (300, d), cuda)
+    blocks[:10] = lib[:10]
+    before = L1_STRIPE.launches
+    got = distance.l1_argmin_stripes(blocks, lib)
+    assert L1_STRIPE.launches > before
+    want = distance.l1_argmin(blocks, lib)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("h,w", [(1, 16), (7, 13), (24, 6144), (3, 100003)])

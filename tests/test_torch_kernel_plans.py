@@ -153,3 +153,64 @@ def test_k9_shared_memory_fits_every_planned_dout(mode, dout):
     assert ring <= smem and 4 * P._K9_TQ * P._SEG_ROW_WORDS <= smem
     assert smem <= _SMEM_BLOCK_MAX
     assert 2 * (smem + 1024) <= _SM_SMEM  # two blocks share an SM
+
+
+# K10 (`csrc/l1_topcap.cu`): one block per (query tile, library tile);
+# the C entry points refuse a plan that does not match their tiles.
+
+
+def _k10_tile(bid, ntq, ntl, qg=8):
+    """The kernel's block order (`tile_of`): groups of qg query tiles,
+    library tile by library tile inside a group."""
+    per_group = qg * ntl
+    g, r = divmod(bid, per_group)
+    gq = min(qg, ntq - g * qg)
+    return g * qg + r % gq, r // gq
+
+
+@pytest.mark.parametrize(
+    "d,dw", [(3, 4), (12, 4), (16, 4), (17, 8), (48, 12), (50, 16), (768, 192),
+             (3072, 768), (49152, 12288)]
+)
+def test_k10_row_width_is_whole_vectors(d, dw):
+    assert P._k10_plan(5, 300, d)[0] == dw
+    assert dw % 4 == 0 and 4 * dw >= d > 4 * dw - 16
+
+
+@pytest.mark.parametrize("rows,l", [(1, 1), (127, 129), (300, 700), (1000, 128), (4096, 1000),
+                                    (1025, 3000), (129, 130 * 128)])
+def test_k10_blocks_cover_every_tile_pair_once(rows, l):
+    _, ntq, blocks, _ = P._k10_plan(rows, l, 48)
+    ntl = -(-l // P._K10_T)
+    assert ntq == -(-rows // P._K10_T) and blocks == ntq * ntl
+    seen = np.zeros((ntq, ntl), np.int64)
+    for bid in range(blocks):
+        qt, lt = _k10_tile(bid, ntq, ntl)
+        seen[qt, lt] += 1
+    assert (seen == 1).all()
+
+
+def test_k10_flagship_plans_and_shared_memory():
+    # the worst case's 16384 blocks against 65534 rows of 3072 bytes
+    dw, ntq, blocks, smem = P._k10_plan(16384, 65534, 3072)
+    assert (dw, ntq, blocks) == (768, 128, 128 * 512)
+    # the ring of two 16-word stages, then over it the int32 sums at the
+    # selection's stride: one block of 256 threads fits
+    assert smem == 4 * max(P._K10_RING_WORDS, 128 * P._SEG_ROW_WORDS) == 67584
+    assert P._K10_RING_WORDS * 4 <= 48 * 1024  # the stripe entry's static ring
+    assert 3 * (smem + 1024) <= _SM_SMEM
+
+
+@pytest.mark.parametrize("l", [1, 127, 65534, 2**24, 2**31 - 1])
+def test_k10_rows_per_launch_keep_the_grid_in_int32(l):
+    rows = P._k10_rows(l)
+    assert rows % P._K10_T == 0 and rows >= P._K10_T
+    assert P._k10_plan(rows, l, 12)[2] <= 2**31 - 1
+
+
+def test_k10_entries_share_one_source_and_count_apart():
+    from emosaic_tpu_torch.ops._kernels import L1_STRIPE, L1_TOPCAP
+
+    assert L1_STRIPE.source == L1_TOPCAP.source and L1_STRIPE.source.name == "l1_topcap.cu"
+    assert L1_STRIPE.library == L1_TOPCAP.library
+    assert (L1_STRIPE.name, L1_TOPCAP.name) == ("l1_stripe", "l1_topcap")

@@ -122,6 +122,61 @@ def test_sharded_topk_bit_identical(rng, devices, data, model):
         assert got[0].shape == (53, k)
 
 
+def test_shard_cap_rule():
+    # P4's shards: k = 512 against 32767 rows, four nearest a segment: 16
+    assert tsh._shard_cap(512, 32767) == 16
+    assert tsh._shard_cap(256, 32768) == tdd._TL_CAP  # exactly one a segment
+    assert tsh._shard_cap(7, 45) == 16
+
+
+@pytest.mark.parametrize("n,model", [(4, 2), (8, 2)])
+@pytest.mark.parametrize("l", [1999, 2000])
+def test_sharded_topk_two_level_with_fallback_bit_identical(rng, devices, monkeypatch, n, model,
+                                                            l):
+    """Shards large enough for the two-level selection (K10's fused entry
+    on the card, `_l1_topcap_ref` here): a run of near-equal rows inside
+    one shard's segment makes its blocks fail the certificate, so the
+    dense stripe recomputes those rows alone; blocks of uniform noise
+    certify. With L = 1999 the last shard ends in a padding row (col >=
+    real_l). 2x2 and 4x2 meshes against the JAX package's route and the
+    stripes."""
+    jm, tm = _meshes(n, model)
+    d, k = 12, 20
+    lib = rng.integers(0, 256, size=(l, d), dtype=np.uint8)
+    base = rng.integers(0, 256, size=d)
+    lib[1100:1140] = np.clip(base + rng.integers(-2, 3, (40, d)), 0, 255)  # shard 1, one segment
+    lib[1800] = lib[5]  # a tie across the two library shards
+    blocks = rng.integers(0, 256, size=(45, d), dtype=np.uint8)
+    blocks[:20] = np.clip(base + rng.integers(-2, 3, (20, d)), 0, 255)
+    blocks[30] = lib[5]
+    dense, two = [], []
+    real_dense, real_two = tsh._local_dense, tdd._twolevel_keys
+    monkeypatch.setattr(tsh, "_local_dense",
+                        lambda x, *a: dense.append(x.shape[0]) or real_dense(x, *a))
+    monkeypatch.setattr(tdd, "_twolevel_keys",
+                        lambda x, *a: two.append(x.shape[0]) or real_two(x, *a))
+    got = tpar.sharded_l1_topk(blocks, lib, k, tm)
+    assert len(two) == n and 0 < sum(dense) < sum(two)  # every shard two-level, some rows fall back
+    _eq(*zip(got, jdd.l1_topk_stripes(blocks, lib, k)),
+        *zip(got, jpar.sharded_l1_topk(blocks, lib, k, jm)))
+
+
+def test_sharded_topk_large_k_keeps_the_dense_stripe(rng, devices, monkeypatch):
+    """k above a shard's valid rows or its survivors: the shard takes the
+    dense stripe, as before."""
+    jm, tm = _meshes(8, 2)
+    lib = rng.integers(0, 256, size=(300, 12), dtype=np.uint8)
+    blocks = rng.integers(0, 256, size=(9, 12), dtype=np.uint8)
+    two = []
+    real_two = tdd._twolevel_keys
+    monkeypatch.setattr(tdd, "_twolevel_keys",
+                        lambda x, *a: two.append(1) or real_two(x, *a))
+    got = tpar.sharded_l1_topk(blocks, lib, 151, tm)
+    assert not two
+    _eq(*zip(got, jdd.l1_topk_stripes(blocks, lib, 151)),
+        *zip(got, jpar.sharded_l1_topk(blocks, lib, 151, jm)))
+
+
 @pytest.mark.parametrize("n", [8, 4, 2, 1])
 def test_sharded_lut_build_bit_identical(rng, devices, n):
     jm, tm = _meshes(n)

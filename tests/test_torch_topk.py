@@ -562,3 +562,135 @@ def test_device_of_prefers_the_asked_device_then_the_tensor(monkeypatch):
     assert P._device_of(np.zeros((1, 3), np.uint8), None) == torch.device("cuda")
     assert P._device_of(np.zeros((1, 3), np.uint8), "cpu") == torch.device("cpu")
     assert P._device_of(torch.zeros((1, 3), dtype=torch.uint8), None) == torch.device("cpu")
+
+
+# K10's fused stage 1 (`l1_topcap`, plain version `_l1_topcap_ref` on the
+# CPU) against the per-segment stage computed from the JAX package's
+# `l1_dist_matrix`, and the routes that now run it.
+
+
+def _jax_stage1(x, t, cap, col0, real_l):
+    """Each 128-column segment's cap least (distance << 32) | col keys,
+    ascending, from the JAX package's dense matrix: the last segment's
+    missing columns and the cols at or past real_l are I32_MAX."""
+    dist = np.asarray(J.l1_dist_matrix(x, t)).astype(np.int64)
+    l = t.shape[0]
+    nseg = -(-l // 128)
+    dist = np.pad(dist, ((0, 0), (0, nseg * 128 - l)), constant_values=P.I32_MAX)
+    cols = np.arange(col0, col0 + nseg * 128, dtype=np.int64)
+    dist[:, cols >= real_l] = P.I32_MAX
+    keys = (dist << 32) | cols
+    return np.sort(keys.reshape(x.shape[0], nseg, 128), axis=-1)[:, :, :cap]
+
+
+@pytest.mark.parametrize(
+    "kind,r,l,d,cap,col0,real_l",
+    [
+        ("ragged", 21, 300, 12, 8, 0, None),        # L not a multiple of 128
+        ("tie_storm", 9, 700, 12, 8, 0, None),      # equal distances across the cap
+        ("tie_storm", 5, 256, 48, 33, 0, None),     # ... and on the rank path
+        ("uniform", 17, 257, 3, 8, 0, None),        # D = 3
+        ("uniform", 11, 400, 50, 16, 0, None),      # D = 50
+        ("uniform", 13, 384, 12, 1, 0, None),       # caps 1, 8, 16, 33
+        ("uniform", 13, 384, 12, 16, 0, None),
+        ("uniform", 7, 384, 27, 33, 0, None),
+        ("shard", 15, 256, 12, 8, 1000, 1200),      # col0 > 0, real_l inside
+        ("shard", 6, 300, 48, 16, 64, 300),         # real_l in the last but one segment
+    ],
+)
+def test_l1_topcap_ref_matches_jax_stage1(kind, r, l, d, cap, col0, real_l):
+    rng = np.random.default_rng(r * 31 + l + d + cap)
+    if kind == "tie_storm":
+        t = np.tile(rng.integers(0, 256, size=(3, d), dtype=np.uint8), (-(-l // 3), 1))[:l]
+    else:
+        t = rng.integers(0, 256, size=(l, d), dtype=np.uint8)
+    x = rng.integers(0, 256, size=(r, d), dtype=np.uint8)
+    x[0] = t[l // 2]
+    real = col0 + l if real_l is None else real_l
+    want = _jax_stage1(x, t, cap, col0, real)
+    xt, tt = torch.from_numpy(x), torch.from_numpy(t)
+    got = P._l1_topcap_ref(xt, tt, cap, col0, real)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(P.l1_topcap(xt, tt, cap, col0=col0, real_l=real_l).numpy(),
+                                  want)
+
+
+def test_l1_topcap_validation():
+    x = torch.zeros((2, 12), dtype=torch.uint8)
+    t = torch.zeros((300, 12), dtype=torch.uint8)
+    for bad, exc in [
+        (lambda: P.l1_topcap(x.int(), t, 8), TypeError),
+        (lambda: P.l1_topcap(x, t[:, :6], 8), ValueError),
+        (lambda: P.l1_topcap(x, t[:0], 8), ValueError),
+        (lambda: P.l1_topcap(x, t, 0), ValueError),
+        (lambda: P.l1_topcap(x, t, 129), ValueError),
+        (lambda: P.l1_topcap(x, t, 8, col0=2**31 - 300), ValueError),
+    ]:
+        with pytest.raises(exc):
+            bad()
+    assert P.l1_topcap(x[:0], t, 8).shape == (0, 3, 8)
+
+
+def test_l1_block_checks_shapes_and_devices():
+    x = torch.zeros((2, 12), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        P.l1_block(x, torch.zeros((5, 11), dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        P.l1_block(x, torch.zeros((5, 12), dtype=torch.uint8, device="meta"))
+
+
+@pytest.mark.parametrize(
+    "seed,b,l,d,k", [(4, 40, 1000, 48, 12), (5, 37, 1500, 12, 16), (6, 12, 2000, 50, 10)]
+)
+def test_l1_topk_twolevel_partial_certification_matches_jax(monkeypatch, seed, b, l, d, k):
+    """A run of rows near one colour inside one segment holds more than
+    the cap of its blocks' nearest rows, so those blocks fail the
+    certificate (the stripe fallback runs for them alone); blocks of
+    uniform noise, whose nearest rows spread over the segments, pass."""
+    r = np.random.default_rng(seed)
+    lib = r.integers(0, 256, size=(l, d), dtype=np.uint8)
+    base = r.integers(0, 256, size=d)
+    lib[300 : 300 + 3 * P._TL_CAP] = np.clip(base + r.integers(-2, 3, (3 * P._TL_CAP, d)), 0, 255)
+    blocks = r.integers(0, 256, size=(b, d), dtype=np.uint8)
+    blocks[: b // 2] = np.clip(base + r.integers(-2, 3, (b // 2, d)), 0, 255)
+    seen = []
+    real = P.l1_topk_stripes
+    monkeypatch.setattr(P, "l1_topk_stripes",
+                        lambda bb, ll, kk, **kw: seen.append(bb.shape[0]) or real(bb, ll, kk, **kw))
+    got = P.l1_topk_twolevel(blocks, lib, k, device="cpu")
+    assert 0 < sum(seen) < b
+    _eq(got, J.l1_topk_twolevel(blocks, lib, k))
+    _eq(got, J.l1_topk_stripes(blocks, lib, k))
+
+
+def test_l1_topk_worst_case_reroute_matches_jax(rng, monkeypatch):
+    """Uniform data past the dense budget: `l1_topk` takes the adaptive
+    scorer, whose sample gate reroutes to the two-level scorer (the
+    flagship's worst case, at a small size)."""
+    lib = rng.integers(0, 256, size=(8400, 48), dtype=np.uint8)  # past 1024 / 16 segments
+    blocks = rng.integers(0, 256, size=(140, 48), dtype=np.uint8)
+    blocks[3] = lib[1000]
+    lib[8300] = lib[1000]  # a tie across segments
+    monkeypatch.setattr(J, "_TOPK_MATRIX_BUDGET", 1000)
+    monkeypatch.setattr(P, "_TOPK_MATRIX_BUDGET", 1000)
+    st = {}
+    got = P.l1_topk(blocks, lib, 20, device="cpu", stats=st)
+    assert st["route"] == "twolevel (sample gate)"
+    _eq(got, J.l1_topk(blocks, lib, 20))
+    _eq(got, J.l1_topk_stripes(blocks, lib, 20))
+
+
+def test_twolevel_chunks_follow_the_survivor_budget(rng, monkeypatch):
+    """The chunk is bounded by the [rows, nseg, cap] survivor keys, not by a
+    [rows, L] stripe: a small budget gives several chunks, same lists."""
+    lib = rng.integers(0, 256, size=(700, 12), dtype=np.uint8)
+    blocks = rng.integers(0, 256, size=(30, 12), dtype=np.uint8)
+    want = P.l1_topk_twolevel(blocks, lib, 9, device="cpu")
+    assert P._twolevel_rows(6, 8) == P._AD_SURV_BYTES // (8 * 6 * 8)
+    monkeypatch.setattr(P, "_AD_SURV_BYTES", 8 * 6 * 8 * 7)
+    assert P._twolevel_rows(6, 8) == 7
+    calls = []
+    real = P.l1_topcap
+    monkeypatch.setattr(P, "l1_topcap", lambda x, *a, **kw: calls.append(x.shape[0]) or real(x, *a, **kw))
+    _eq(P.l1_topk_twolevel(blocks, lib, 9, device="cpu"), want)
+    assert calls == [7, 7, 7, 7, 2]
