@@ -767,7 +767,10 @@ def phase_c_k10(torch, gen, dev, card, rate, b=16384, l=65534,
     stripe (`l1_block` on u8 rows against `_l1_block_ref`) at D 3..49152
     with ragged rows, and the fused top-cap (`l1_topcap` against
     `_l1_topcap_ref`) at caps 1..32 and 33, on tie storms, a padded last
-    segment, a col0 offset and rows past 2^24; then at the worst case's
+    segment, a col0 offset and rows past 2^24; the persistent grid's edges
+    (fewer tiles than SMs, tile counts not a multiple of the SMs, D not a
+    multiple of the 64-word stage: 3, 48, 3088, 65800) and ties across the
+    two threads that select a row; then at the worst case's
     shape (uniform B=16384 against L=65534 rows of D=3072, cap 8; exact on
     a row sample) and at P4's shard shape (4096 rows against 32767 of D=48,
     cap 16, col0 = 32767, whole). Timed: the stripe against
@@ -807,10 +810,31 @@ def phase_c_k10(torch, gen, dev, card, rate, b=16384, l=65534,
     for col0, real_l in ((1000, 1200), (4096, 10**6), (128, 128), (0, 700)):
         for cap in (8, 16, 40):
             topcap_case(x, t, cap, col0, real_l, f"K10 top-cap col0={col0} real_l={real_l}")
+    # the persistent grid and the ring of 64-word stages: fewer tiles than
+    # SMs, tile counts that are not a multiple of the SMs, ragged rows and
+    # library, D not a multiple of the stage; then ties across the two
+    # threads that select a row
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for r, n in ((130, 1000), (257, 129 * 128 + 5), (2100, 2200)):
+        check((distance._k10_plan(r, n, 48, sms)[2] < sms) == (r == 130),
+              f"K10 edge shape {r} x {n}: tiles against SMs")
+        for d in (3, 48, 3088):
+            stripe_case(r, n, d)
+            x, t = _u8(torch, gen, (r, d), dev), _u8(torch, gen, (n, d), dev)
+            for cap in (1, 8, 16, 32, 33):
+                topcap_case(x, t, cap, 77, 77 + n - 3, f"K10 top-cap {r} x {n} D={d} cap={cap}")
+    x = _u8(torch, gen, (200, 48), dev)
+    row = _u8(torch, gen, (1, 48), dev)
+    for t in (row.repeat(1000, 1), torch.cat([row, 255 - row]).repeat(500, 1)):
+        for cap in (1, 8, 16, 32, 33):
+            topcap_case(x, t, cap, 0, 1000, f"K10 top-cap tie storm across the pair, cap={cap}")
+    log(f"K10 at fewer tiles than the {sms} SMs and at 390 and 306 tiles, D 3, 48, 3088, caps "
+        "1..33 with padding, ties across the selecting pair: exact")
     x = torch.zeros((3, 65800), dtype=torch.uint8, device=dev)
     t = torch.full((300, 65800), 255, dtype=torch.uint8, device=dev)
     t[290, 7] = 254
     topcap_case(x, t, 8, 0, 300, "K10 top-cap D=65800 (rank path, ties past 2^24)")
+    stripe_case(3, 200, 65800)
     got = distance.l1_topcap(x, t, 8)
     torch.cuda.synchronize()
     check(int(got[0, 2, 0] >> 32) == 255 * 65800 - 1 and int(got[0, 2, 0] & 0xFFFFFFFF) == 290,

@@ -1,8 +1,9 @@
 // The per-segment selection shared by K4 (`seg_topcap.cu`), K9
-// (`coarse_topcap.cu`) and K10 (`l1_topcap.cu`): one thread takes one
-// (row, segment), the 128 int32 values of that segment in shared memory,
-// and writes the segment's `cap` least keys (value << 32) | col,
-// ascending, the lowest col first among equal values.
+// (`coarse_topcap.cu`) and K10 (`l1_topcap.cu`): one thread (K4, K9:
+// `select_segment`) or a pair of threads (K10: `select_segment_pair`,
+// below) takes one (row, segment), the 128 int32 values of that segment in
+// shared memory, and writes the segment's `cap` least keys (value << 32) |
+// col, ascending, the lowest col first among equal values.
 //
 // Contract of the callers (ops/distance.py `seg_topcap`, `l1_topcap`):
 // within a segment the cols grow with the position, so (value, position)
@@ -145,6 +146,98 @@ __device__ __forceinline__ int select_segment(const int* v, int nvalid, int cap,
       }
     }
     return worst;
+  }
+}
+
+// The pair form (K10's top-cap, `l1_topcap.cu`): two threads, lanes 2m and
+// 2m + 1 of a warp, select one segment together, each over one half of its
+// positions, so that every thread of the block selects and each does half
+// the inserts. Half h takes positions [64 h, 64 h + 64) into its own sorted
+// list; the pair then swaps lists by shuffles and both keep the CAPL least
+// of the two: min(l[j], partner[CAPL - 1 - j]) is those CAPL keys as a
+// bitonic sequence (rising while l's keys are the smaller, then falling),
+// which a bitonic merge sorts in log2(CAPL) rounds of CAPL / 2
+// compare-exchanges. The keys carry the position, so they are distinct and
+// the result is exactly `select_segment`'s. The `seen` test and the rank
+// path (ranks over all 128 positions, each thread ranking its own half)
+// are decided for the pair together.
+constexpr int HALF = SEG / 2;
+
+template <class Cols>
+__device__ __noinline__ void select_rank_half(const int* v, int h, int nvalid, int cap, int big,
+                                              Cols cols, unsigned long long* __restrict__ out) {
+  for (int p = h * HALF; p < (h + 1) * HALF; ++p) {
+    const int vp = p < nvalid ? v[p] : big;
+    const long long kp = ((long long)vp << 7) | p;
+    int rank = 0;
+    for (int q = 0; q < SEG; ++q) {
+      const int vq = q < nvalid ? v[q] : big;
+      rank += (((long long)vq << 7) | q) < kp;
+    }
+    if (rank < cap) out[rank] = out_key(vp, cols(p));
+  }
+}
+
+// Select one segment with the pair: v = its 128 values in shared memory
+// (16-byte aligned), h = this thread's half (its lane's low bit), out = its
+// `cap` output slots, written only when `write` (both threads of a pair
+// pass the same flag; the pair's lanes must both call this).
+template <int CAPL, class Cols>
+__device__ __forceinline__ void select_segment_pair(const int* v, int h, int nvalid, int cap,
+                                                    int big, Cols cols,
+                                                    unsigned long long* __restrict__ out,
+                                                    bool write) {
+  const unsigned pair = 3u << ((threadIdx.x & 31) & 30);
+  if constexpr (CAPL == 0) {
+    if (write) select_rank_half(v, h, nvalid, cap, big, cols, out);
+  } else {
+    unsigned l[CAPL];
+#pragma unroll
+    for (int j = 0; j < CAPL; ++j) l[j] = 0xFFFFFFFFu;
+    unsigned seen = 0;
+    const int4* v4 = reinterpret_cast<const int4*>(v);
+#pragma unroll 4
+    for (int m = 0; m < HALF / 4; ++m) {
+      // half 1 starts four 16-byte units further on: with a row stride of
+      // 33 units, the 8 lanes of a load phase (4 pairs) hit distinct banks
+      const int k4 = h * (HALF / 4) + ((m + 4 * h) & (HALF / 4 - 1));
+      const int4 q = v4[k4];
+      const unsigned x[4] = {(unsigned)q.x, (unsigned)q.y, (unsigned)q.z, (unsigned)q.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const unsigned p = (unsigned)(4 * k4 + i);
+        const bool ok = (int)p < nvalid;
+        seen |= ok ? x[i] : 0u;
+        insert(l, ok ? (x[i] << 7) | p : BIG_KEY | p);
+      }
+    }
+    seen |= __shfl_xor_sync(pair, seen, 1);
+    if (seen >= VAL_LIMIT) {
+      if (write) select_rank_half(v, h, nvalid, cap, big, cols, out);
+      return;
+    }
+    unsigned m[CAPL];
+#pragma unroll
+    for (int j = 0; j < CAPL; ++j) m[j] = min(l[j], __shfl_xor_sync(pair, l[CAPL - 1 - j], 1));
+#pragma unroll
+    for (int s = CAPL / 2; s > 0; s >>= 1)
+#pragma unroll
+      for (int j = 0; j < CAPL; ++j)
+        if ((j & s) == 0) {
+          const unsigned a = m[j], b = m[j + s];
+          m[j] = min(a, b);
+          m[j + s] = max(a, b);
+        }
+    if (write) {
+#pragma unroll
+      for (int j = 0; j < CAPL; ++j) {
+        if (j < cap && (j & 1) == h) {
+          const unsigned key = m[j];
+          const int value = (key >> 7) == VAL_LIMIT ? big : (int)(key >> 7);
+          out[j] = out_key(value, cols((int)(key & (SEG - 1))));
+        }
+      }
+    }
   }
 }
 

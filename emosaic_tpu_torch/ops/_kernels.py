@@ -170,7 +170,7 @@ _L = ctypes.c_longlong
 L1_STRIPE = CudaKernel(
     "l1_stripe",
     "emosaic_l1_stripe",
-    [_I, _P, _P, _P, _L, _L, _I, _L, _L, _P],
+    [_I, _P, _P, _P, _L, _L, _I, _L, _L, _I, _I, _P],
     source="l1_topcap",
 )
 #: csrc/l1_topcap.cu, the fused per-segment top-cap (see ops/distance.py
@@ -178,7 +178,7 @@ L1_STRIPE = CudaKernel(
 L1_TOPCAP = CudaKernel(
     "l1_topcap",
     "emosaic_l1_topcap",
-    [_I, _P, _P, _P, _L, _L, _I, _L, _L, _I, _L, _L, _I, _I, _P],
+    [_I, _P, _P, _P, _L, _L, _I, _L, _L, _I, _I, _L, _L, _I, _I, _P],
 )
 KERNELS = (L1_ARGMIN, COMPOSE, L1_ROWS, SEG_TOPCAP, FLOOR_WRITE, COMPOSE_BULK,
            COMPOSE_BULK2, BAND_TRANSPOSE, COARSE_TOPCAP, L1_STRIPE, L1_TOPCAP)

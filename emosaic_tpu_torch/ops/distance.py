@@ -416,36 +416,48 @@ def _l1_block_ref(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 
 #: K10's tiles (`csrc/l1_topcap.cu`): query rows and library rows per
-#: block (a library tile is one segment), and the 4-byte words of its
-#: two-stage ring (query and library tiles of 16-word steps, rows padded
-#: by 4 words)
+#: tile (a library tile is one segment), the 4-byte words of a row that a
+#: stage of its ring holds (two TMA boxes of 128 rows x 128 bytes for each
+#: operand), the stages of each entry's ring, and each entry's shared
+#: memory a block: 1024 bytes to align the ring, the ring, the top-cap's
+#: int32 sums at the selection's stride, and 128 bytes of barriers
 _K10_T = 128
-_K10_RING_WORDS = 2 * 2 * _K10_T * (16 + 4)
+_K10_KW = 64
+_K10_STAGE_BYTES = 2 * (_K10_KW // 32) * _K10_T * 128
+_K10_STRIPE_STAGES = 3
+_K10_TOPCAP_STAGES = 2
+_K10_STRIPE_SMEM = 1024 + _K10_STRIPE_STAGES * _K10_STAGE_BYTES + 128
+_K10_TOPCAP_SMEM = 1024 + _K10_TOPCAP_STAGES * _K10_STAGE_BYTES + 4 * _K10_T * 132 + 128
+#: tiles a launch at most (the kernel's tile indices are ints), and query
+#: tiles (the TMA's row coordinates are ints)
+_K10_MAX_TILES = 1 << 30
+_K10_MAX_QTILES = (1 << 24) - 1
 
 
-def _k10_plan(rows: int, l: int, d: int) -> tuple[int, int, int, int]:
+def _k10_plan(rows: int, l: int, d: int, sms: int) -> tuple[int, int, int, int]:
     """K10's launch for `rows` query rows against l library rows of d
-    bytes: (row width in 4-byte words, padded to whole 16-byte vectors;
-    query tiles; blocks, one per (query tile, library tile); shared-memory
-    bytes a block of the top-cap entry: the ring, then over it the tile's
-    int32 sums at the selection's stride). The kernel walks the blocks in
-    groups of 8 query tiles, library tile by library tile in a group."""
+    bytes on a card of `sms` SMs: (row width in 4-byte words, padded to
+    whole 16-byte vectors; query tiles; tiles, one per (query tile,
+    library tile); blocks, one an SM or one a tile, whichever is fewer).
+    Each block walks the tiles blockIdx.x, blockIdx.x + blocks, ... of the
+    kernel's order (`tile_of`): groups of 8 query tiles, library tile by
+    library tile in a group."""
     dw = -(-d // 16) * 4
     ntq = -(-rows // _K10_T)
-    ntl = -(-l // _K10_T)
-    return dw, ntq, ntq * ntl, 4 * max(_K10_RING_WORDS, _K10_T * _SEG_ROW_WORDS)
+    tiles = ntq * -(-l // _K10_T)
+    return dw, ntq, tiles, min(sms, tiles)
 
 
 def _k10_rows(l: int) -> int:
     """Query rows per K10 launch against l library rows: whole query tiles,
-    at most 2^31 - 1 blocks."""
-    return max(1, I32_MAX // -(-l // _K10_T)) * _K10_T
+    at most `_K10_MAX_TILES` tiles and `_K10_MAX_QTILES` query tiles."""
+    return max(1, min(_K10_MAX_TILES // -(-l // _K10_T), _K10_MAX_QTILES)) * _K10_T
 
 
 def _k10_operands(x: torch.Tensor, t: torch.Tensor):
     """x and t zero-padded to whole 16-byte vectors and 16-byte aligned, as
     K10 reads them, and the padded width in 4-byte words."""
-    dw = _k10_plan(1, 1, x.shape[1])[0]
+    dw = _k10_plan(1, 1, x.shape[1], 1)[0]
     return _pad_words(x, 4 * dw, 16), _pad_words(t, 4 * dw, 16), dw
 
 
@@ -457,10 +469,11 @@ def _l1_stripe_cuda(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         return out
     q, tt, dw = _k10_operands(x, t)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     step = _k10_rows(bt)
     for r0 in range(0, bx, step):
         rows = min(step, bx - r0)
-        _, ntq, blocks, _ = _k10_plan(rows, bt, d)
+        _, ntq, tiles, grid = _k10_plan(rows, bt, d, sms)
         L1_STRIPE.launch(
             x.device.index,
             ctypes.c_void_p(q[r0 : r0 + rows].data_ptr()),
@@ -470,7 +483,9 @@ def _l1_stripe_cuda(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
             bt,
             dw,
             ntq,
-            blocks,
+            tiles,
+            grid,
+            _K10_STRIPE_SMEM,
             ctypes.c_void_p(stream),
         )
     return out
@@ -686,10 +701,11 @@ def _l1_topcap_cuda(x: torch.Tensor, t: torch.Tensor, cap: int, col0: int,
         return out
     q, tt, dw = _k10_operands(x, t)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     step = _k10_rows(l)
     for r0 in range(0, rows, step):
         r = min(step, rows - r0)
-        _, ntq, blocks, smem = _k10_plan(r, l, d)
+        _, ntq, tiles, grid = _k10_plan(r, l, d, sms)
         L1_TOPCAP.launch(
             x.device.index,
             ctypes.c_void_p(q[r0 : r0 + r].data_ptr()),
@@ -699,12 +715,13 @@ def _l1_topcap_cuda(x: torch.Tensor, t: torch.Tensor, cap: int, col0: int,
             l,
             dw,
             ntq,
-            blocks,
+            tiles,
+            grid,
             cap,
             col0,
             min(real_l, col0 + l),
             I32_MAX,
-            smem,
+            _K10_TOPCAP_SMEM,
             ctypes.c_void_p(stream),
         )
     return out

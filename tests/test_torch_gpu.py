@@ -402,6 +402,75 @@ def test_k10_wide_rows_take_the_rank_path(cuda):
     assert int(got[0, 2, 0] >> 32) == 255 * 65800 - 1 and int(got[0, 2, 0] & 0xFFFFFFFF) == 290
 
 
+# K10's persistent grid and its ring of 64-word stages: fewer tiles than
+# SMs, tile counts that are not a multiple of the SMs, ragged rows and
+# library, and D that is not a multiple of the stage (a short last chunk).
+_K10_EDGES = [(1, 1), (130, 1000), (257, 129 * 128 + 5), (1000, 4000), (2100, 2200)]
+
+
+@pytest.mark.parametrize("d", [3, 48, 3088])
+@pytest.mark.parametrize("r,l", _K10_EDGES)
+def test_k10_stripe_persistent_edges(cuda, r, l, d):
+    rng = np.random.default_rng(r + l + d)
+    x, t = _u8(rng, (r, d), cuda), _u8(rng, (l, d), cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    tiles = distance._k10_plan(r, l, d, sms)[2]
+    assert (tiles < sms) == ((r, l) in _K10_EDGES[:2])
+    got = distance.l1_block(x, t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, distance._l1_block_ref(x, t))
+
+
+@pytest.mark.parametrize("cap", [1, 8, 16, 32, 33])
+@pytest.mark.parametrize("d", [3, 48, 3088])
+@pytest.mark.parametrize("r,l", _K10_EDGES[1:])
+def test_k10_topcap_persistent_edges(cuda, r, l, d, cap):
+    rng = np.random.default_rng(r + l + d + cap)
+    x, t = _k10_case(rng, "uniform", r, l, d, cuda)
+    got = distance.l1_topcap(x, t, cap, col0=77, real_l=77 + l - 3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, distance._l1_topcap_ref(x, t, cap, 77, 77 + l - 3))
+
+
+@pytest.mark.parametrize("cap", [1, 8, 16, 32, 33])
+def test_k10_topcap_tie_storm_across_the_pair(cuda, cap):
+    """Every library row equal, or two values alternating, so each kept
+    list ties across the two threads' halves of a segment: the lowest cols
+    first, from both halves in turn."""
+    rng = np.random.default_rng(cap)
+    x = _u8(rng, (200, 48), cuda)
+    row = _u8(rng, (1, 48), cuda)
+    for t in (row.repeat(1000, 1), torch.cat([row, 255 - row]).repeat(500, 1)):
+        got = distance.l1_topcap(x, t, cap)
+        torch.cuda.synchronize()
+        assert torch.equal(got, distance._l1_topcap_ref(x, t, cap, 0, 1000))
+
+
+def test_k10_entries_refuse_a_plan_that_does_not_match(cuda):
+    import ctypes
+
+    x = torch.zeros((300, 64), dtype=torch.uint8, device=cuda)
+    out = torch.empty((300, 300), dtype=torch.int32, device=cuda)
+    keys = torch.empty((300, 3, 8), dtype=torch.int64, device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    dw, ntq, tiles, grid = distance._k10_plan(300, 300, 64, sms)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(cuda).cuda_stream)
+    p = [ctypes.c_void_p(a.data_ptr()) for a in (x, x, out)]
+    for bad in ((tiles + 1, grid, distance._K10_STRIPE_SMEM),
+                (tiles, grid + 1, distance._K10_STRIPE_SMEM),
+                (tiles, grid, distance._K10_STRIPE_SMEM - 16)):
+        with pytest.raises(RuntimeError, match="l1_stripe kernel launch failed"):
+            L1_STRIPE.launch(0, *p, 300, 300, dw, ntq, *bad, stream)
+    p[2] = ctypes.c_void_p(keys.data_ptr())
+    with pytest.raises(RuntimeError, match="l1_topcap kernel launch failed"):
+        L1_TOPCAP.launch(0, *p, 300, 300, dw, ntq, tiles, grid, 8, 0, 300, 2**31 - 1,
+                         distance._K10_STRIPE_SMEM, stream)
+    L1_TOPCAP.launch(0, *p, 300, 300, dw, ntq, tiles, grid, 8, 0, 300, 2**31 - 1,
+                     distance._K10_TOPCAP_SMEM, stream)
+    torch.cuda.synchronize()
+    assert torch.equal(keys, distance._l1_topcap_ref(x, x, 8, 0, 300))
+
+
 def test_k10_routes_equal_the_cpu(cuda):
     """The two-level scorer (K10's fused entry, then the stripe fallback on
     K10's stripe) and the mesh's stripe top-k on a virtual card mesh equal

@@ -1,5 +1,6 @@
-"""The launch plans of K1 and K3 (`ops/distance.py` `_k1_plan`,
-`_k3_plan`): the Python side of the kernels, checked on the CPU.
+"""The launch plans of K1, K3, K4, K9 and K10 (`ops/distance.py` `_k1_plan`,
+`_k3_plan`, `_k4_plan`, `_k9_plan`, `_k10_plan`): the Python side of the
+kernels, checked on the CPU.
 
 K1 takes the register path for rows of at most 16 words (D <= 64) and the
 staged path, on rows padded to 16-byte vectors, above; its library splits
@@ -155,17 +156,27 @@ def test_k9_shared_memory_fits_every_planned_dout(mode, dout):
     assert 2 * (smem + 1024) <= _SM_SMEM  # two blocks share an SM
 
 
-# K10 (`csrc/l1_topcap.cu`): one block per (query tile, library tile);
-# the C entry points refuse a plan that does not match their tiles.
+# K10 (`csrc/l1_topcap.cu`): a persistent grid, one block an SM (or one a
+# tile, whichever is fewer), each walking the (query tile, library tile)
+# pairs by a static stride; a producer thread feeds a ring of 64-word
+# stages by TMA boxes. The C entry points refuse a plan that does not match
+# their constants.
 
 
-def _k10_tile(bid, ntq, ntl, qg=8):
-    """The kernel's block order (`tile_of`): groups of qg query tiles,
-    library tile by library tile inside a group."""
-    per_group = qg * ntl
-    g, r = divmod(bid, per_group)
+def _k10_tile(w, ntq, ntl, qg=8):
+    """The kernel's tile order (`tile_of`): groups of qg query tiles,
+    library tile by library tile inside a group, the last group possibly
+    narrower."""
+    g, r = divmod(w, qg * ntl)
     gq = min(qg, ntq - g * qg)
     return g * qg + r % gq, r // gq
+
+
+def _k10_walk(ntq, ntl, grid):
+    """Every block's tiles, in the kernel's order: block b takes tiles b,
+    b + grid, ... (the producer and the consumers walk the same list)."""
+    tiles = ntq * ntl
+    return [[_k10_tile(w, ntq, ntl) for w in range(b, tiles, grid)] for b in range(grid)]
 
 
 @pytest.mark.parametrize(
@@ -173,39 +184,121 @@ def _k10_tile(bid, ntq, ntl, qg=8):
              (3072, 768), (49152, 12288)]
 )
 def test_k10_row_width_is_whole_vectors(d, dw):
-    assert P._k10_plan(5, 300, d)[0] == dw
+    assert P._k10_plan(5, 300, d, 132)[0] == dw
     assert dw % 4 == 0 and 4 * dw >= d > 4 * dw - 16
 
 
+@pytest.mark.parametrize("sms", [132, 5])
 @pytest.mark.parametrize("rows,l", [(1, 1), (127, 129), (300, 700), (1000, 128), (4096, 1000),
                                     (1025, 3000), (129, 130 * 128)])
-def test_k10_blocks_cover_every_tile_pair_once(rows, l):
-    _, ntq, blocks, _ = P._k10_plan(rows, l, 48)
+def test_k10_blocks_cover_every_tile_pair_once(rows, l, sms):
+    _, ntq, tiles, grid = P._k10_plan(rows, l, 48, sms)
     ntl = -(-l // P._K10_T)
-    assert ntq == -(-rows // P._K10_T) and blocks == ntq * ntl
+    assert ntq == -(-rows // P._K10_T) and tiles == ntq * ntl
+    assert grid == min(sms, tiles)
     seen = np.zeros((ntq, ntl), np.int64)
-    for bid in range(blocks):
-        qt, lt = _k10_tile(bid, ntq, ntl)
-        seen[qt, lt] += 1
+    walk = _k10_walk(ntq, ntl, grid)
+    for block in walk:
+        for qt, lt in block:
+            seen[qt, lt] += 1
     assert (seen == 1).all()
+    # the blocks' loads stay balanced: at most one tile apart
+    sizes = [len(b) for b in walk]
+    assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+
+
+@pytest.mark.parametrize("rows,l,sms", [(1, 1, 132), (130, 1000, 132), (1000, 4000, 132),
+                                        (4096, 32767, 132), (300, 700, 1000)])
+def test_k10_grid_smaller_than_the_sm_count(rows, l, sms):
+    # fewer tiles than SMs: one block a tile, each walks one tile
+    _, ntq, tiles, grid = P._k10_plan(rows, l, 48, sms)
+    assert grid == min(sms, tiles) <= sms
+    walk = _k10_walk(ntq, -(-l // P._K10_T), grid)
+    assert sorted(w for b in walk for w in b) == sorted(
+        (qt, lt) for qt in range(ntq) for lt in range(-(-l // P._K10_T)))
+    if tiles <= sms:
+        assert all(len(b) == 1 for b in walk)
+    else:  # a tile count that is not a multiple of the SMs: the first blocks take one more
+        assert [len(b) for b in walk] == [-(-(tiles - b) // grid) for b in range(grid)]
+
+
+@pytest.mark.parametrize("d", [3, 16, 48, 252, 256, 257, 3072, 3088, 65800])
+def test_k10_stages_cover_every_word_once(d):
+    # the stages of a row: KW words each, the last one short; the consumers
+    # sum whole 16-byte vectors, and the producer copies the 32-word boxes
+    # that hold words of the row (zeros past its end)
+    dw = P._k10_plan(1, 1, d, 132)[0]
+    chunks = [(d0, min(P._K10_KW, dw - d0)) for d0 in range(0, dw, P._K10_KW)]
+    assert [w for d0, n in chunks for w in range(d0, d0 + n)] == list(range(dw))
+    assert all(n > 0 and n % 4 == 0 for _, n in chunks)
+    assert len(chunks) == -(-dw // P._K10_KW)
+    boxes = [d0 + 32 * b for d0, n in chunks for b in range(-(-n // 32))]
+    assert boxes == list(range(0, dw, 32))
 
 
 def test_k10_flagship_plans_and_shared_memory():
-    # the worst case's 16384 blocks against 65534 rows of 3072 bytes
-    dw, ntq, blocks, smem = P._k10_plan(16384, 65534, 3072)
-    assert (dw, ntq, blocks) == (768, 128, 128 * 512)
-    # the ring of two 16-word stages, then over it the int32 sums at the
-    # selection's stride: one block of 256 threads fits
-    assert smem == 4 * max(P._K10_RING_WORDS, 128 * P._SEG_ROW_WORDS) == 67584
-    assert P._K10_RING_WORDS * 4 <= 48 * 1024  # the stripe entry's static ring
-    assert 3 * (smem + 1024) <= _SM_SMEM
+    # the worst case's 16384 rows against 65534 rows of 3072 bytes: 65536
+    # tiles over 132 blocks, 12 stages a tile
+    dw, ntq, tiles, grid = P._k10_plan(16384, 65534, 3072, 132)
+    assert (dw, ntq, tiles, grid) == (768, 128, 128 * 512, 132)
+    # a stage is two TMA boxes (128 rows x 128 bytes) of each operand; the
+    # stripe's ring has three, the top-cap's two and its sums, each after
+    # up to 1024 bytes that align the ring, and 128 bytes of barriers
+    assert P._K10_STAGE_BYTES == 2 * 2 * 128 * 128 == 65536
+    assert P._K10_STRIPE_SMEM == 1024 + 3 * 65536 + 128 == 197760
+    assert P._K10_TOPCAP_SMEM == 1024 + 2 * 65536 + 128 * P._SEG_ROW_WORDS * 4 + 128 == 199808
+    for smem in (P._K10_STRIPE_SMEM, P._K10_TOPCAP_SMEM):
+        assert smem <= _SMEM_BLOCK_MAX
+        assert smem + 1024 <= _SM_SMEM  # one block an SM
+    # the 128-byte swizzle puts 16-byte unit c of row r at unit c ^ (r & 7):
+    # the 8 rows a quarter-warp reads (rows tx, tx + 1, ... at one unit)
+    # sit in distinct 4-bank groups, and so do the two rows of the query
+    # operand a warp reads
+    for c in range(8):
+        assert len({(r * 128 + 16 * (c ^ (r & 7))) % 128 // 16 for r in range(8)}) == 8
 
 
 @pytest.mark.parametrize("l", [1, 127, 65534, 2**24, 2**31 - 1])
 def test_k10_rows_per_launch_keep_the_grid_in_int32(l):
     rows = P._k10_rows(l)
     assert rows % P._K10_T == 0 and rows >= P._K10_T
-    assert P._k10_plan(rows, l, 12)[2] <= 2**31 - 1
+    _, ntq, tiles, grid = P._k10_plan(rows, l, 12, 132)
+    # int tile indices in the kernel: every tile index plus the stride fits;
+    # int TMA row coordinates
+    assert tiles <= P._K10_MAX_TILES and tiles + grid <= 2**31 - 1
+    assert rows <= 2**31 - 1
+    # the last row's offsets into the stripe and the keys fit an int64
+    nseg = -(-l // P._K10_T)
+    assert rows * l < 2**63 and rows * nseg * 128 < 2**63
+
+
+def _merge_pair(v, nvalid, capl):
+    """`select_segment_pair`'s list path on 128 values: each half's sorted
+    list of u32 keys (value << 7) | position (padding (2^24 << 7) |
+    position), then min(l[j], partner[capl - 1 - j]) and a bitonic merge."""
+    def half(h):
+        keys = sorted((int(v[p]) << 7 | p) if p < nvalid else (1 << 31 | p)
+                      for p in range(64 * h, 64 * h + 64))
+        return keys[:capl]
+
+    lists = [half(0), half(1)]
+    m = [min(lists[0][j], lists[1][capl - 1 - j]) for j in range(capl)]
+    s = capl // 2
+    while s:
+        for j in range(capl):
+            if not j & s:
+                m[j], m[j + s] = min(m[j], m[j + s]), max(m[j], m[j + s])
+        s //= 2
+    return m
+
+
+@pytest.mark.parametrize("capl", [1, 2, 4, 8, 16, 32])
+def test_k10_pair_merge_keeps_the_least_keys_in_order(capl):
+    rng = np.random.default_rng(capl)
+    for hi, nvalid in [(3, 128), (50, 100), (2**20, 128), (5, 0), (1000, 65), (2, 64)]:
+        v = rng.integers(0, hi, 128)
+        want = sorted((int(v[p]) << 7 | p) if p < nvalid else (1 << 31 | p) for p in range(128))
+        assert _merge_pair(v, nvalid, capl) == want[:capl]
 
 
 def test_k10_entries_share_one_source_and_count_apart():
