@@ -229,27 +229,12 @@ def fadd_rate(torch, dev, card) -> dict:
     SM clock, and measured with the pure FADD / FADD.abs kernel of
     `csrc/coarse_topcap.cu` (16 chains a thread, 8 blocks of 256 threads per
     SM). K9's ceiling uses the larger of the two."""
-    import ctypes
-
-    from emosaic_tpu_torch.ops._kernels import COARSE_TOPCAP
-
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
     derived = sms * 64 * mhz * 1e6
-    fn = ctypes.CDLL(str(COARSE_TOPCAP.library)).emosaic_fadd_rate
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = torch.zeros(1, dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    blocks, iters = sms * 8, 4096
-
-    def run():
-        check(fn(dev.index, out.data_ptr(), blocks, iters, stream) == 0, "fadd_rate launch")
-
-    ms = cuda_ms(torch, run, reps=3)
-    measured = blocks * 256 * 32 * iters / (ms * 1e-3)
+    measured = probe_rate(torch, dev, "emosaic_fadd_rate", 1)
     log(f"FP32 rate: derived {sms} SMs x 128 lanes / 2 FADDs x {mhz:.0f} MHz = "
         f"{derived / 1e12:.2f} T pairs/s; a pure FADD/FADD.abs kernel reached "
         f"{measured / 1e12:.2f} [{card}]")
@@ -257,6 +242,48 @@ def fadd_rate(torch, dev, card) -> dict:
             "how": f"{sms} SMs x 128 FP32 lanes / 2 FADDs x {mhz:.0f} MHz = "
                    f"{derived / 1e12:.2f} T pairs/s; a pure FADD/FADD.abs kernel "
                    f"measured {measured / 1e12:.2f}; the larger"}
+
+
+def probe_rate(torch, dev, symbol: str, per_step: float) -> float:
+    """Operations/s of a rate probe of `csrc/coarse_topcap.cu` (16 chains a
+    thread, 8 blocks of 256 threads per SM, 32 steps of `per_step`
+    operations a thread an iteration)."""
+    import ctypes
+
+    from emosaic_tpu_torch.ops._kernels import COARSE_TOPCAP
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fn = getattr(ctypes.CDLL(str(COARSE_TOPCAP.library)), symbol)
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    blocks, iters = sms * 8, 1024
+
+    def run():
+        check(fn(dev.index, out.data_ptr(), blocks, iters, stream) == 0, f"{symbol} launch")
+
+    ms = cuda_ms(torch, run, reps=3)
+    return blocks * 256 * 32 * iters * per_step / (ms * 1e-3)
+
+
+def vabsdiff2_rate(torch, dev, card) -> float:
+    """Pairs/s of the packed 16-bit probe of `csrc/coarse_topcap.cu` (one
+    `vabsdiff2.u32.u32.u32.add` = two pairs): sm_90a expands it into a
+    sequence, so K9 keeps f32 operands (PERF.md)."""
+    measured = probe_rate(torch, dev, "emosaic_vabsdiff2_rate", 2)
+    log(f"packed 16-bit vabsdiff2.add: {measured / 1e12:.2f} T pairs/s (not an sm_90a "
+        f"instruction; the FP32 path does two FADDs a pair) [{card}]")
+    return measured
+
+
+def vimnmx_rate(torch, dev, card) -> float:
+    """VIMNMX/s of the selection's integer min/max probe of
+    `csrc/coarse_topcap.cu` (branch-free inserts into sorted lists, as K9's
+    selection runs them): what bounds K9's selection."""
+    measured = probe_rate(torch, dev, "emosaic_vimnmx_rate", 3.5)  # 112 an iteration
+    log(f"integer min/max (VIMNMX) alone: {measured / 1e12:.2f} T/s [{card}]")
+    return measured
 
 
 def ceiling(nbytes: float, pairs: float, rate: dict) -> dict:
@@ -677,11 +704,11 @@ def phase_c_k9(torch, gen, dev, card, frate, b=16384, nseg_flag=512) -> dict:
 
     def case(nseg, dout, g, kind, rows):
         """(xp [rows, dout] i32, coarse library) in projected units (group
-        sums of g cells, 0..255g): 40 centres +-2g, or ("dupes") 50 rows
-        repeated over the whole library."""
+        sums of g cells, 0..255g): 40 centres +-2g, or ("dupes", "storm") 50
+        or 3 rows repeated over the whole library."""
         lp = nseg * 128
         top = 255 * g
-        cen = torch.randint(0, top + 1, (40 if kind == "clustered" else 50, dout),
+        cen = torch.randint(0, top + 1, ({"clustered": 40, "dupes": 50, "storm": 3}[kind], dout),
                             device=dev, generator=gen)
         pick = torch.randint(0, cen.shape[0], (lp,), device=dev, generator=gen)
         rows_lib = cen[pick]
@@ -720,6 +747,23 @@ def phase_c_k9(torch, gen, dev, card, frate, b=16384, nseg_flag=512) -> dict:
     torch.cuda.empty_cache()
     log(f"K9 dout {[d_ for d_, _ in douts]} x nseg {nsegs} (real_l = lp - 37) x cap 1, 8, 16 "
         "x clustered and cross-segment duplicates: keys and s_min equal to the plain version")
+    # the persistent grid's edges: (rows, nseg, dout, g, padding positions):
+    # 3 items (fewer than the SMs), 153 and 240 items (not a multiple of
+    # the SMs: blocks of two items, both teams, the ring wrapping), ragged
+    # rows, real_l short of lp by 1 to 200 positions, dout 6, 27, 96 and
+    # 1536 (96 stages an item); caps 1 to 33; "storm" repeats 3 rows over
+    # the whole library (ties in every segment and across segments)
+    edges = ((5, 3, 6, 8, 37), (300, 51, 27, 4, 200), (129, 7, 96, 32, 1), (1, 1, 6, 8, 100),
+             (257, 2, 1536, 32, 37), (700, 40, 96, 32, 37))
+    for rows, nseg, dout, g, pad in edges:
+        for kind in ("clustered", "storm"):
+            xp, (proj, cols, _) = case(nseg, dout, g, kind, rows)
+            for cap in (1, 8, 16, 32, 33):
+                one(xp, (proj, cols, nseg * 128 - pad), cap,
+                    f"K9 edge rows={rows} nseg={nseg} dout={dout} cap={cap} {kind}")
+            del xp, proj, cols
+    log(f"K9 persistent-grid edges (rows, nseg, dout, g, padding) {edges} x cap 1, 8, 16, 32, "
+        "33 x clustered and tie storms: keys and s_min equal to the plain version")
 
     # the flagship coarse pass: B=16384 projected blocks (dout 96) against
     # 512 segments, cap 16, in one call
@@ -745,18 +789,35 @@ def phase_c_k9(torch, gen, dev, card, frate, b=16384, nseg_flag=512) -> dict:
     # read the projected rows, the library and the cols once; write keys and s_min
     nb = xp.numel() * 4 + proj.numel() * 4 + cols.numel() * 4 + keys.numel() * 8 + b * 4
     res = {**bound(nb, 2.0 * pairs), **ceiling(nb, pairs, frate)}
+    # the issue floor: two FADDs a pair and the selection's 2 * 16 + 4
+    # instructions a position, at 4 warp instructions an SM a clock (the
+    # FP32 rate's clock: 64 pairs = 128 thread instructions an SM a clock)
+    floor_ms = b * lp * (2 * dout + 36) / (2 * frate["derived"]) * 1e3
     log(f"K9 B={b} lp={lp} dout={dout} cap={cap}: kernel {ms:.3f} ms "
         f"({pairs / ms / 1e9:.2f} T pairs/s), bound {res['bound_ms']:.3f} ms "
-        f"({res['bound_by']}), FP32 ceiling {res['ceiling_ms']:.3f} ms; cdist + K4 "
-        f"{pair_ms:.3f} ms (the cdist stripe alone {stripe_ms:.3f} ms); plain "
-        f"{plain_ms:.3f} ms [{card}]")
+        f"({res['bound_by']}), FP32 ceiling {res['ceiling_ms']:.3f} ms, issue floor "
+        f"{floor_ms:.3f} ms; cdist + K4 {pair_ms:.3f} ms (the cdist stripe alone "
+        f"{stripe_ms:.3f} ms); plain {plain_ms:.3f} ms [{card}]")
     del xp, cl, proj, cols, keys, s_min, rows_lib
+    torch.cuda.empty_cache()
+    # one launch at the 200k shape (the lab probe's chunk: 1341 rows x 1563
+    # segments, cap 8)
+    xp, cl = case(1563, dout, 32, "clustered", 1341)
+    keys = torch.empty((1341, 1563 * 8), dtype=torch.int64, device=dev)
+    s_min = torch.empty((1341,), dtype=torch.int32, device=dev)
+    one(xp, cl, 8, "K9 200k shape")
+    ms_200k = cuda_ms(torch, lambda: distance.coarse_topcap(xp, cl, 8, keys, s_min))
+    log(f"K9 1341 rows x 1563 segments x dout {dout}, cap 8 (the 200k shape): {ms_200k:.3f} ms "
+        f"[{card}]")
+    del xp, cl, keys, s_min
     torch.cuda.empty_cache()
     # no single torch call computes the fused function; library_ms is the
     # cdist stripe it replaces
     return {"max_abs_err": err.max, "ms": ms, "plain_ms": plain_ms, **res,
-            "library_ms": stripe_ms, "cdist_k4_ms": pair_ms,
-            "fp32_rate_measured": frate["measured"],
+            "library_ms": stripe_ms, "cdist_k4_ms": pair_ms, "issue_floor_ms": floor_ms,
+            "ms_200k": ms_200k, "fp32_rate_measured": frate["measured"],
+            "vabsdiff2_rate_measured": vabsdiff2_rate(torch, dev, card),
+            "vimnmx_rate_measured": vimnmx_rate(torch, dev, card),
             "shape": f"B={b} lp={lp} nseg={nseg_flag} dout={dout} cap={cap} (the flagship "
                      "coarse pass in one call)"}
 

@@ -149,7 +149,8 @@ __device__ __forceinline__ int select_segment(const int* v, int nvalid, int cap,
   }
 }
 
-// The pair form (K10's top-cap, `l1_topcap.cu`): two threads, lanes 2m and
+// The pair form (K10's top-cap, `l1_topcap.cu`; K9 pairs its own batched
+// lists with this rank path): two threads, lanes 2m and
 // 2m + 1 of a warp, select one segment together, each over one half of its
 // positions, so that every thread of the block selects and each does half
 // the inserts. Half h takes positions [64 h, 64 h + 64) into its own sorted
@@ -163,9 +164,11 @@ __device__ __forceinline__ int select_segment(const int* v, int nvalid, int cap,
 // are decided for the pair together.
 constexpr int HALF = SEG / 2;
 
+// Returns the value of the cap-th key when this half holds it, else -1.
 template <class Cols>
-__device__ __noinline__ void select_rank_half(const int* v, int h, int nvalid, int cap, int big,
-                                              Cols cols, unsigned long long* __restrict__ out) {
+__device__ __noinline__ int select_rank_half(const int* v, int h, int nvalid, int cap, int big,
+                                             Cols cols, unsigned long long* __restrict__ out) {
+  int worst = -1;
   for (int p = h * HALF; p < (h + 1) * HALF; ++p) {
     const int vp = p < nvalid ? v[p] : big;
     const long long kp = ((long long)vp << 7) | p;
@@ -174,8 +177,12 @@ __device__ __noinline__ void select_rank_half(const int* v, int h, int nvalid, i
       const int vq = q < nvalid ? v[q] : big;
       rank += (((long long)vq << 7) | q) < kp;
     }
-    if (rank < cap) out[rank] = out_key(vp, cols(p));
+    if (rank < cap) {
+      out[rank] = out_key(vp, cols(p));
+      if (rank == cap - 1) worst = vp;
+    }
   }
+  return worst;
 }
 
 // Select one segment with the pair: v = its 128 values in shared memory

@@ -158,14 +158,13 @@ BAND_TRANSPOSE = CudaKernel(
     "emosaic_band_transpose",
     [_I, _P, _P, _I, _I, _I, _I, _P],
 )
+_L = ctypes.c_longlong
 #: csrc/coarse_topcap.cu (see ops/distance.py `coarse_topcap`)
 COARSE_TOPCAP = CudaKernel(
     "coarse_topcap",
     "emosaic_coarse_topcap",
-    [_I, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _I,
-     ctypes.c_longlong, _I, ctypes.c_longlong, _I, _P],
+    [_I, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _L, _I, _L, _I, _I, _I, _P],
 )
-_L = ctypes.c_longlong
 #: csrc/l1_topcap.cu, the dense stripe (see ops/distance.py `l1_block`)
 L1_STRIPE = CudaKernel(
     "l1_stripe",

@@ -964,10 +964,16 @@ _SEG_CAP_MAX = _TL_SEG
 #: thread fall in distinct banks. K9 writes its sums at the same stride.
 _K4_CHUNKS = 128
 _SEG_ROW_WORDS = 132
-#: K9's tiles (`csrc/coarse_topcap.cu`): query rows per block (one segment
-#: of 128 positions each), and coordinates per step of its K-loop
+#: K9's launch (`csrc/coarse_topcap.cu`): query rows of an item (one
+#: segment of 128 positions each), coordinates of a stage, the stages of
+#: each of its two teams' rings, and its shared memory a block: 128 bytes
+#: to align the rings, then for each team its ring (each stage a [16, 128]
+#: f32 box of each operand) and its int32 sums at the selection's stride,
+#: and 64 bytes of barriers
 _K9_TQ = 128
-_K9_KT = 32
+_K9_KT = 16
+_K9_STAGES = 2
+_K9_SMEM = 128 + 2 * (_K9_STAGES * 2 * _K9_KT * _K9_TQ * 4 + _K9_TQ * _SEG_ROW_WORDS * 4) + 64
 
 
 def _k4_plan(rows: int, nseg: int) -> tuple[int, int]:
@@ -977,18 +983,18 @@ def _k4_plan(rows: int, nseg: int) -> tuple[int, int]:
     return -(-rows * nseg // _K4_CHUNKS), _K4_CHUNKS * _SEG_ROW_WORDS * 4
 
 
-def _k9_plan(rows: int, nseg: int, dout: int) -> tuple[int, int, int, int]:
+def _k9_plan(rows: int, nseg: int, dout: int, sms: int) -> tuple[int, int, int, int]:
     """K9's launch for `rows` projected query rows of `dout` coordinates
-    against nseg segments: (rpad, blocks, steps, shared-memory bytes a
-    block). Query rows are padded to rpad, a multiple of 128; block
-    qt * nseg + s takes query tile qt against segment s; its K-loop takes
-    `steps` steps of 32 coordinates (the last one ragged). The shared
-    memory holds the two-stage ring of query and library tiles, then,
-    over it, the tile's int32 sums at the selection's stride."""
+    against nseg segments on a card of `sms` SMs: (rpad, items, blocks,
+    steps). Query rows are padded to rpad, a multiple of 128; an item is a
+    (query tile, segment) pair; one block an SM, or one an item when there
+    are fewer, walks the items blockIdx.x, blockIdx.x + blocks, ... of the
+    kernel's order (`item_of`: groups of 8 query tiles, segment by segment
+    in a group), its two teams taking them in turn; an item takes `steps`
+    stages of 16 coordinates (the last one ragged)."""
     rpad = -(-rows // _K9_TQ) * _K9_TQ
-    ring = 2 * _K9_KT * (_K9_TQ + _TL_SEG)
-    return (rpad, rpad // _K9_TQ * nseg, -(-dout // _K9_KT),
-            4 * max(ring, _K9_TQ * _SEG_ROW_WORDS))
+    items = rpad // _K9_TQ * nseg
+    return rpad, items, min(sms, items), -(-dout // _K9_KT)
 
 
 def _seg_topcap_ref(
@@ -1106,7 +1112,8 @@ def _coarse_topcap_cuda(xp, proj, cols, cap: int, real_l: int, keys, s_min) -> N
     r, dout = xp.shape
     nseg = proj.shape[0]
     dev = xp.device
-    rpad, blocks, _, smem = _k9_plan(r, nseg, dout)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rpad, items, grid, steps = _k9_plan(r, nseg, dout, sms)
     xt = torch.zeros((dout, rpad), dtype=torch.float32, device=dev)
     xt[:, :r] = xp.t()
     p, c = _aligned(proj), _aligned(cols)
@@ -1125,8 +1132,10 @@ def _coarse_topcap_cuda(xp, proj, cols, cap: int, real_l: int, keys, s_min) -> N
         cap,
         real_l,
         _TL_BIG,
-        blocks,
-        smem,
+        items,
+        grid,
+        steps,
+        _K9_SMEM,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
 

@@ -300,7 +300,7 @@ def test_k4_tie_storms_and_padding(cuda, cap):
         assert torch.equal(got, distance._seg_topcap_ref(dist, cols, cap, real_l))
 
 
-def _coarse_case(rng, l, d, g, dev, kind):
+def _coarse_case(rng, l, d, g, dev, kind, rows=70):
     """(projected blocks, coarse library) on dev: a library of l rows with
     a ragged last segment; "storm" repeats 3 rows over the whole library
     (ties everywhere, across segments), "clustered" is 20 centres +-3."""
@@ -312,19 +312,27 @@ def _coarse_case(rng, l, d, g, dev, kind):
         lib = np.clip(c[rng.integers(0, 20, size=l)] + rng.integers(-3, 4, (l, d)), 0, 255)
     lib_pad = np.zeros((lp, d), np.uint8)
     lib_pad[:l] = lib
-    blocks = np.clip(lib[rng.integers(0, l, size=70)] + rng.integers(-2, 3, (70, d)), 0, 255)
+    blocks = np.clip(lib[rng.integers(0, l, size=rows)] + rng.integers(-2, 3, (rows, d)), 0, 255)
     cl = distance._ad_coarse_lib(torch.from_numpy(lib_pad).to(dev), d, g, True, l)
     xp = distance._ad_project(torch.from_numpy(blocks.astype(np.uint8)).to(dev), d, g, True)
     return xp, cl
 
 
+# K9's persistent grid, its ring of 16-coordinate stages and its two teams:
+# (library rows, D, g, query rows) with dout 6, 27, 24, 384, 1536 and 96;
+# one item, three items (fewer than the SMs), and 471 items (not a multiple
+# of the SMs: blocks of several items, both teams, the ring wrapping);
+# ragged rows and a ragged real_l in every case.
+_K9_CASES = [(100, 48, 8, 70), (900, 108, 4, 70), (3000, 768, 32, 70), (700, 12288, 32, 70),
+             (300, 49152, 32, 5), (20000, 3072, 32, 300)]
+
+
 @pytest.mark.parametrize("kind", ["storm", "clustered"])
-@pytest.mark.parametrize("cap", [1, 8, 16, 100])
-@pytest.mark.parametrize("l,d,g", [(100, 48, 8), (900, 108, 4), (3000, 768, 32),
-                                   (700, 12288, 32)])
-def test_k9_matches_plain(cuda, kind, cap, l, d, g):
+@pytest.mark.parametrize("cap", [1, 8, 16, 32, 33, 100])
+@pytest.mark.parametrize("l,d,g,rows", _K9_CASES)
+def test_k9_matches_plain(cuda, kind, cap, l, d, g, rows):
     rng = np.random.default_rng(l + cap)
-    xp, cl = _coarse_case(rng, l, d, g, cuda, kind)
+    xp, cl = _coarse_case(rng, l, d, g, cuda, kind, rows)
     nseg = cl[0].shape[0]
     keys = torch.empty((xp.shape[0], nseg * cap), dtype=torch.int64, device=cuda)
     s_min = torch.empty((xp.shape[0],), dtype=torch.int32, device=cuda)
@@ -333,6 +341,33 @@ def test_k9_matches_plain(cuda, kind, cap, l, d, g):
     torch.cuda.synchronize()
     assert COARSE_TOPCAP.launches == before + 1
     wk, ws = distance._coarse_topcap_ref(xp, cl[0], cl[1], cap, cl[2])
+    assert torch.equal(keys, wk) and torch.equal(s_min, ws)
+
+
+def test_k9_refuses_a_plan_that_does_not_match(cuda):
+    import ctypes
+
+    rng = np.random.default_rng(9)
+    xp, (proj, cols, real_l) = _coarse_case(rng, 1000, 48, 8, cuda, "clustered", 300)
+    nseg, dout = proj.shape[0], proj.shape[1]
+    keys = torch.empty((300, nseg * 8), dtype=torch.int64, device=cuda)
+    s_min = torch.full((300,), 2**31 - 1, dtype=torch.int32, device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    rpad, items, grid, steps = distance._k9_plan(300, nseg, dout, sms)
+    xt = torch.zeros((dout, rpad), dtype=torch.float32, device=cuda)
+    xt[:, :300] = xp.t()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(cuda).cuda_stream)
+    p = [ctypes.c_void_p(a.data_ptr()) for a in (xt, proj, cols, keys, s_min)]
+    head = (300, rpad, dout, nseg, 8, real_l, distance._TL_BIG)
+    for bad in ((items + 1, grid, steps, distance._K9_SMEM),
+                (items, grid + 1, steps, distance._K9_SMEM),
+                (items, grid, steps + 1, distance._K9_SMEM),
+                (items, grid, steps, distance._K9_SMEM - 16)):
+        with pytest.raises(RuntimeError, match="coarse_topcap kernel launch failed"):
+            COARSE_TOPCAP.launch(0, *p, *head, *bad, stream)
+    COARSE_TOPCAP.launch(0, *p, *head, items, grid, steps, distance._K9_SMEM, stream)
+    torch.cuda.synchronize()
+    wk, ws = distance._coarse_topcap_ref(xp, proj, cols, 8, real_l)
     assert torch.equal(keys, wk) and torch.equal(s_min, ws)
 
 

@@ -118,28 +118,62 @@ def test_k4_flagship_stripe_passes_4_gib_in_one_plan():
     assert rows * nseg * 128 * 4 > 2**32 and blocks == 65600
 
 
-@pytest.mark.parametrize("rows,nseg", [(1, 1), (37, 7), (300, 512), (129, 1563), (200, 977)])
-def test_k9_tiles_cover_every_row_segment_pair_once(rows, nseg):
-    rpad, blocks, _, _ = P._k9_plan(rows, nseg, 96)
+# K9 (`csrc/coarse_topcap.cu`): a persistent grid, one block an SM (or one
+# an item, whichever is fewer), each walking the (query tile, segment)
+# items by a static stride, its two teams taking them in turn; each team's
+# first thread feeds the team's ring of 16-coordinate stages by TMA boxes.
+
+
+def _k9_item(w, ntq, nseg, qg=8):
+    """The kernel's item order (`item_of`): groups of qg query tiles,
+    segment by segment inside a group, the last group possibly narrower."""
+    g, r = divmod(w, qg * nseg)
+    gq = min(qg, ntq - g * qg)
+    return g * qg + r % gq, r // gq
+
+
+@pytest.mark.parametrize(
+    "rows,nseg,sms",
+    [(1, 1, 132), (5, 3, 132), (37, 7, 132), (300, 51, 132), (300, 512, 132), (129, 1563, 132),
+     (200, 977, 132), (1341, 1563, 132), (4096, 512, 132), (1000, 10, 7)],
+)
+def test_k9_items_cover_every_row_segment_pair_once(rows, nseg, sms):
+    rpad, items, grid, _ = P._k9_plan(rows, nseg, 96, sms)
     assert rpad % P._K9_TQ == 0 and rows <= rpad < rows + P._K9_TQ
-    count = np.zeros((rows, nseg), np.int64)
-    for bid in range(blocks):  # block qt * nseg + s: query tile qt, segment s
-        qt, s = divmod(bid, nseg)
-        count[qt * P._K9_TQ : (qt + 1) * P._K9_TQ, s] += 1
+    ntq = rpad // P._K9_TQ
+    assert items == ntq * nseg and grid == min(sms, items)
+    count = np.zeros((ntq, nseg), np.int64)
+    teams = np.full((ntq, nseg), -1, np.int64)
+    walks = []
+    for b in range(grid):  # block b takes items b, b + grid, ...; team j % 2 the j-th
+        walk = list(range(b, items, grid))
+        walks.append(len(walk))
+        for j, w in enumerate(walk):
+            qt, s = _k9_item(w, ntq, nseg)
+            count[qt, s] += 1
+            teams[qt, s] = j % 2
     assert (count == 1).all()
-
-
-def test_k9_flagship_plan():
-    # 4096-row chunks of the flagship's 16384 blocks against 512 segments
-    assert P._k9_plan(4096, 512, 96) == (4096, 32 * 512, 3, 67584)
+    # every block has an item, and the blocks' loads are at most one apart
+    assert min(walks) >= 1 and max(walks) - min(walks) <= 1
+    if items <= sms:
+        assert walks == [1] * items
+    assert (teams >= 0).all() and (teams == 1).any() == (max(walks) > 1)
 
 
 @pytest.mark.parametrize("dout", [1, 5, 6, 9, 24, 27, 31, 32, 33, 96, 384, 1536])
-def test_k9_k_loop_covers_every_coordinate(dout):
-    _, _, steps, _ = P._k9_plan(100, 3, dout)
-    seen = [c for k in range(steps) for c in range(k * P._K9_KT, min(dout, (k + 1) * P._K9_KT))]
-    assert seen == list(range(dout))
-    assert all(min(P._K9_KT, dout - k * P._K9_KT) > 0 for k in range(steps))
+def test_k9_stages_cover_every_coordinate_once(dout):
+    _, _, _, steps = P._k9_plan(100, 3, dout, 132)
+    kt = P._K9_KT
+    assert steps == -(-dout // kt)
+    stages = [list(range(k * kt, min(dout, (k + 1) * kt))) for k in range(steps)]
+    assert [c for st in stages for c in st] == list(range(dout))
+    assert all(stages)
+    # the consumers sum whole pairs of coordinates: a short last stage's
+    # extra coordinate is still inside the box, past dout, a TMA zero
+    for k, st in enumerate(stages):
+        read = range(k * kt, k * kt + 2 * -(-len(st) // 2))
+        assert read[-1] < (k + 1) * kt and all(c < dout for c in read if c in st)
+        assert all(c >= dout for c in read if c not in st)
 
 
 @pytest.mark.parametrize(
@@ -149,11 +183,94 @@ def test_k9_shared_memory_fits_every_planned_dout(mode, dout):
     d = 3 * mode * mode
     _, g, chan, *_ = P._ad_plan(16384, 65534, d, 512)
     assert chan and (d // 3 // g) * 3 == dout
-    _, _, _, smem = P._k9_plan(16384, 512, dout)
-    ring = 4 * 2 * P._K9_KT * (P._K9_TQ + P._TL_SEG)
-    assert ring <= smem and 4 * P._K9_TQ * P._SEG_ROW_WORDS <= smem
-    assert smem <= _SMEM_BLOCK_MAX
-    assert 2 * (smem + 1024) <= _SM_SMEM  # two blocks share an SM
+    # the rings stream any dout in stages of 16 coordinates: the shared
+    # memory does not grow with it
+    _, _, _, steps = P._k9_plan(16384, 512, dout, 132)
+    assert steps * P._K9_KT >= dout > (steps - 1) * P._K9_KT
+    stage = 2 * P._K9_KT * P._K9_TQ * 4  # a [16, 128] f32 box of each operand
+    sums = P._K9_TQ * P._SEG_ROW_WORDS * 4  # a team's int32 sums
+    assert P._K9_SMEM == 128 + 2 * (P._K9_STAGES * stage + sums) + 64
+    assert P._K9_SMEM <= _SMEM_BLOCK_MAX
+    assert P._K9_SMEM + 1024 <= _SM_SMEM  # one block an SM
+    assert 2 * (P._K9_SMEM + 1024) > _SM_SMEM  # and no second one
+
+
+def test_k9_flagship_plan():
+    # the coarse pass's 4096-row chunks of the flagship's 16384 blocks
+    # against 512 segments: 16384 items over 132 blocks, 6 stages an item
+    assert P._k9_plan(4096, 512, 96, 132) == (4096, 32 * 512, 132, 6)
+    assert P._k9_plan(16384, 512, 96, 132) == (16384, 128 * 512, 132, 6)
+    # the 200k shape's chunk: 11 query tiles x 1563 segments
+    assert P._k9_plan(1341, 1563, 96, 132) == (1408, 11 * 1563, 132, 6)
+    assert (P._K9_TQ, P._K9_KT, P._K9_STAGES, P._K9_SMEM) == (128, 16, 2, 200896)
+
+
+@pytest.mark.parametrize("nb", [1, 2, 3, 4, 7])
+def test_k9_teams_take_alternate_items_and_their_steps(nb):
+    # a block's nb items: team t takes items t, t + 2, ...; its ring runs
+    # through the steps of those items in order, as many as the kernel's
+    # `steps` = (nb - t + 1) // 2 * nk, and its first thread refills slot
+    # g % STAGES with step g + STAGES while one remains
+    nk = P._k9_plan(1, 1, 96, 132)[3]
+    taken = []
+    for team in (0, 1):
+        items = list(range(team, nb, 2))
+        taken += items
+        steps = (nb - team + 1) // 2 * nk
+        assert steps == len(items) * nk
+        seq = [(i, k) for i in items for k in range(nk)]
+        assert len(seq) == steps
+        for g in range(steps):  # step g's item and step within it, as `load_step` finds them
+            assert seq[g] == (team + 2 * (g // nk), g % nk)
+        refills = [g + P._K9_STAGES for g in range(steps) if g + P._K9_STAGES < steps]
+        assert sorted(list(range(min(P._K9_STAGES, steps))) + refills) == list(range(steps))
+    assert sorted(taken) == list(range(nb))
+
+
+def _k9_select_half(v, h, nvalid, capl):
+    """K9's `select_pair` for one half on 128 values: its keys eight at a
+    time, each batch sorted and merged into the sorted list as
+    min(l[j], b[capl - 1 - j]) and a bitonic sort."""
+    def bitonic(m):
+        s = len(m) // 2
+        while s:
+            for j in range(len(m)):
+                if not j & s:
+                    m[j], m[j + s] = min(m[j], m[j + s]), max(m[j], m[j + s])
+            s //= 2
+        return m
+
+    lst = [0xFFFFFFFF] * capl
+    for b0 in range(64 * h, 64 * h + 64, 8):
+        b = sorted((int(v[p]) << 7 | p) if p < nvalid else (1 << 31 | p) for p in range(b0, b0 + 8))
+        lst = bitonic([min(lst[j], b[capl - 1 - j]) if capl - 1 - j < 8 else lst[j]
+                       for j in range(capl)])
+    return lst
+
+
+@pytest.mark.parametrize("cap", [1, 2, 5, 8, 16, 31, 32])
+def test_k9_batched_selection_keeps_the_least_keys_and_the_cap_th_value(cap):
+    # each half's list from batches of eight, then the pair's merge (the
+    # same bitonic step over the partner's list); s_min takes the value of
+    # the cap-th kept key
+    capl = 1 << (cap - 1).bit_length()
+    rng = np.random.default_rng(cap)
+    for hi, nvalid in [(3, 128), (50, 100), (2**20, 128), (5, 0), (1000, 65), (2, 64)]:
+        v = rng.integers(0, hi, 128)
+        lo, hi_ = _k9_select_half(v, 0, nvalid, capl), _k9_select_half(v, 1, nvalid, capl)
+        m = [min(lo[j], hi_[capl - 1 - j]) for j in range(capl)]
+        s = capl // 2
+        while s:
+            for j in range(capl):
+                if not j & s:
+                    m[j], m[j + s] = min(m[j], m[j + s]), max(m[j], m[j + s])
+            s //= 2
+        want = sorted((int(v[p]) << 7 | p) if p < nvalid else (1 << 31 | p) for p in range(128))
+        assert m == want[:capl]
+        key = m[cap - 1]
+        worst = P._TL_BIG if key >> 7 == 1 << 24 else key >> 7
+        vals = sorted(int(v[p]) if p < nvalid else P._TL_BIG for p in range(128))
+        assert worst == vals[cap - 1]
 
 
 # K10 (`csrc/l1_topcap.cu`): a persistent grid, one block an SM (or one a
