@@ -7,7 +7,7 @@ Run from the root of a checkout. Phases, each printing its own lines:
 
   A  environment: torch/CUDA versions, the card's name and power limit,
      nvcc, and a GPU, or it stops;
-  B  build: the eleven CUDA kernels from the nine sources of
+  B  build: the thirteen CUDA kernels from the ten sources of
      `emosaic_tpu_torch/csrc/` (one nvcc per source, started together) and
      the native C++ greedy engine;
   C  each kernel against its plain torch version on the card, exactly:
@@ -21,7 +21,13 @@ Run from the root of a checkout. Phases, each printing its own lines:
      tie storms, a padded last segment, col0 offsets and rows past 2^24,
      both at the worst case's and P4's shapes; the stripe timed against
      `torch.cdist(p=1)`, the top-cap against cdist + the per-segment
-     selection it replaces) at test and main-path shapes, K3 and K4
+     selection it replaces) and K11 (the exact squared-L2 kernel on the
+     tensor cores: its argmin and its per-segment top-cap at phase H's
+     mode-4 shape and the flagship chunk, sampled, at D 12..49152 with
+     the split depth, every segment length, caps 1..32, tie storms and
+     col0 / real_l padding; timed against the f32 `torch.matmul` score
+     stripes and the argmin or packed-key `torch.topk` they replace) at
+     test and main-path shapes, K3 and K4
      also past 4 GiB; K1 also on tie storms, at D = 49152 and 65800 and across D
      (12..3072 at B=4096, L=200000, in T byte pairs/s), K3 on both of its
      paths with ragged groups; the CUDA cores' VABSDIFF4 rate, derived and
@@ -32,7 +38,8 @@ Run from the root of a checkout. Phases, each printing its own lines:
      items, at the BASELINE band and past 4 GiB (K5's band; K6 and K7 on a
      9.8 GB stack); the tint over all 256 alphas x 65536 pairs, the card's
      LUT against the CPU's, and a no-fallback run with the plain versions
-     made to raise (and `torch.cdist` on K10's routes);
+     made to raise (and `torch.cdist` on K10's routes; phase H runs with
+     K11's plain versions raising too);
   D  the repeat main path at the BASELINE size through `render_nto1`,
      from in-memory arrays: 100k synthetic tiles, mode 1 on a 4096^2
      source (LUT), then mode 4 on a 2048^2 source (K1) streamed with a
@@ -57,8 +64,9 @@ Run from the root of a checkout. Phases, each printing its own lines:
      `probes/composite_variants.py` (v1, v4, v3d = K8, K2 at a 1.61 GB
      band, each equal to v1, and the match-phase breakdown);
   H  this slice's paths at full width: `render_nto1` with `hybrid=True`
-     and with `metric="l2"` at phase D's mode-4 shape, the hybrid
-     no-repeat scorer at phase N's flagship shape (K3), and random mode
+     and with `metric="l2"` at phase D's mode-4 shape (K11's top-cap and
+     argmin, K3), the hybrid no-repeat scorer at phase N's flagship shape
+     (K11's top-cap, K3), and random mode
      into an 8192^2 output, in memory and through the streamed composite
      (K2);
   E  the CLI, `python -m emosaic_tpu_torch.cli ... --device cuda`, on a
@@ -98,7 +106,8 @@ Run from the root of a checkout. Phases, each printing its own lines:
      one process carrying `sharded_l1_argmin`'s exchange. A virtual mesh
      measures the shard plumbing's overhead, not a multi-GPU speedup;
   F  the launch counts of each main path's run (D: K1 and K2; N: K3, K9
-     and K2, and in its worst case K10's two entries; H: K3 and K2; L: K4,
+     and K2, and in its worst case K10's two entries; H: K3, K2 and K11's
+     two entries; L: K4,
      K9, K5, K6, K7 and K8; S: K1, K2 and K10's stripe; P: K1, K2, K3, K9
      and K10's top-cap), which must be > 0.
 
@@ -111,8 +120,9 @@ and `{"ok": true, "device": {...}}`.
 Bounds (`bound_ms`): the larger of the bytes the function must move (each
 input read once, each output written once; for gathers, the rows this
 run's indices reach) over 3.35 TB/s, and its integer operations (an
-absolute difference and an add per byte pair; none counted for K4's
-selection) over 1979 TOP/s, the H100 SXM's published HBM rate and int8
+absolute difference and an add per byte pair, for K11 a multiply and an
+add; none counted for a selection) over 1979 TOP/s, the H100 SXM's
+published HBM rate and int8
 peak at its 700 W limit. K1, K3, K9 and K10 also carry `ceiling_ms`: exact L1
 has no tensor-core form at a useful cost, so the least time their
 CUDA-core work can take is the byte pairs over the VABSDIFF4 rate (SMs x
@@ -997,6 +1007,200 @@ def phase_c_k10(torch, gen, dev, card, rate, b=16384, l=65534,
     return st, tc
 
 
+def phase_c_k11(torch, gen, dev, card, mode4=(262144, 200000, 48), flag=(4096, 65534, 3072),
+                rows_t=16384) -> tuple[dict, dict]:
+    """K11's two entry points against their plain versions, bit for bit:
+    the argmin (`distance._l2_argmin` against `_l2_argmin_ref`) and the
+    per-segment top-cap (`l2_topcap` against `_l2_topcap_ref`) at phase
+    H's mode-4 shape (262144 x 200000 x 48, the top-cap with the hybrid
+    prefilter's plan for k_pre = 64; the plain versions on a row sample),
+    at the flagship chunk [4096, 3072] x [65534, 3072] (the plan for k_pre
+    = 1024; sampled), at D = 12, 768 and 49152 on a few hundred rows
+    (padding to 32 bytes, the split depth), every segment length, caps 1
+    to 32 and, ranking the whole segment, up to the segment, tie storms
+    (duplicated rows, a library of four rows) and col0 / real_l padding.
+    The hybrid prefilter where k_pre is too large a share of the library
+    for a fast plan (flagship-width rows against 20000, 4000 and 1100
+    library rows, k_pre = 1024) runs with the plain versions refused and
+    equals them on a row sample. Timed with CUDA events (mean of 5) on the first
+    `rows_t` rows of the mode-4 shape, beside the bound and the route each
+    replaces ("library": the f32 `"highest"` `torch.matmul` score stripes
+    of `|t|^2 - 2 x.t` in row chunks, then their argmin, or the packed keys
+    of their order image and a `torch.topk` per segment), and at the whole
+    mode-4 shape and the flagship chunk. Returns (argmin, top-cap)."""
+    from emosaic_tpu_torch.ops import distance
+    from emosaic_tpu_torch.ops._kernels import L2_TOPCAP
+
+    ea, et = Err(), Err()
+
+    def argmin_case(x, t, what):
+        got, want = distance._l2_argmin(x, t), distance._l2_argmin_ref(x, t)
+        ea.add(torch, got[0], want[0], what + " (dist^2)")
+        ea.add(torch, got[1], want[1], what + " (row)")
+
+    def topcap_case(x, t, cap, seg, col0, real_l, what, prepared=None):
+        et.add(torch, distance.l2_topcap(x, t, cap, seg=seg, col0=col0, real_l=real_l,
+                                         prepared=prepared),
+               distance._l2_topcap_ref(x, t, cap, seg, col0, real_l), what)
+
+    def lib_of(kind, l, d):
+        if kind == "storm":  # four distinct rows: every cut falls in a tie
+            return _u8(torch, gen, (4, d), dev).repeat(-(-l // 4), 1)[:l].contiguous()
+        t = _u8(torch, gen, (l, d), dev)
+        if kind == "duplicates":
+            t[l // 2 :] = t[: l - l // 2].clone()
+        return t
+
+    for d in (12, 48, 128, 129, 768, 3072, 4128, 49152):
+        for kind in ("uniform", "duplicates", "storm"):
+            t = lib_of(kind, 3001 if d < 49152 else 301, d)
+            x = _u8(torch, gen, (257 if d < 49152 else 40, d), dev)
+            x[0] = t[t.shape[0] // 2]
+            argmin_case(x, t, f"K11 argmin D={d} {kind}")
+            if d in (128, 129, 4128):
+                continue
+            for seg in distance._K11_SEGS:
+                for cap in ((1, 7, 16, 24, 32) if d == 48 else (1, 24)):
+                    topcap_case(x, t, cap, seg, 0, t.shape[0],
+                                f"K11 top-cap D={d} seg={seg} cap={cap} {kind}")
+            for seg, cap in ((128, 33), (128, 100), (128, 128), (512, 64)):
+                if d in (12, 48, 768, 49152):
+                    topcap_case(x, t, cap, seg, 0, t.shape[0],
+                                f"K11 top-cap D={d} seg={seg} cap={cap} (ranked) {kind}")
+    x, t = _u8(torch, gen, (300, 48), dev), lib_of("duplicates", 900, 48)
+    for col0, real_l in ((1000, 1200), (4096, 10**6), (128, 128), (0, 700)):
+        for seg, cap in ((128, 8), (1024, 32), (128, 77)):
+            topcap_case(x, t, cap, seg, col0, real_l, f"K11 top-cap col0={col0} real_l={real_l}")
+    log(f"K11 at D 12..49152 (the packed argmin key's widest rows, 128, and past it), every "
+        f"segment length, caps 1..32 and "
+        f"ranked caps up to the whole segment, duplicated rows and tie storms, col0 / real_l "
+        f"padding: exact [{card}]")
+
+    # the prefilter past every fast plan: 128-row segments with caps of 21
+    # (group minima), 60 (ranked) and 128 (kept whole), through K11 alone
+    nr_rows = {}
+    for l in (20000, 4000, 1100):
+        x, t = _u8(torch, gen, (4096, 3072), dev), _u8(torch, gen, (l, 3072), dev)
+        t[l // 2 :: 9] = t[1]  # ties
+        x[0] = t[1]
+        s = torch.arange(0, 4096, 128, device=dev)
+        bias = distance._k11_bias(distance._k11_dp(3072))
+        want = distance._least(distance._keys(distance._l2_dense(x[s], t) - bias,
+                                              torch.arange(l, device=dev)), 1024)
+        before = L2_TOPCAP.launches
+        with _no_fallback():
+            with _uncertified() as unc:
+                got = distance._l2_prefilter(x, t, 1024)
+            ms = cuda_ms(torch, lambda: distance._l2_prefilter(x, t, 1024), reps=2)
+        et.add(torch, got[s], (want & distance._MASK32).to(torch.int32),
+               f"K11 prefilter 4096 x {l} x D=3072, k_pre 1024 (sampled)")
+        check(L2_TOPCAP.launches > before, "the prefilter skipped K11")
+        nr_rows[l] = {"plan": distance._k11_topcap_plan(l, 1024), "ms": ms,
+                      "uncertified": unc["failed"]}
+        log(f"K11 prefilter 4096 x {l} x D=3072, k_pre 1024, plan {nr_rows[l]['plan']}: "
+            f"{ms:.3f} ms, {unc['failed']} rows failed the certificate (run again with whole "
+            f"segments), plain versions refused; exact on a row sample [{card}]")
+        del x, t, want, got
+
+    def lib_argmin(xs, t):
+        """The route K11's argmin replaces: f32 score stripes, first minimum."""
+        xs_f, tf = xs.float(), t.float()
+        norm = (tf * tf).sum(1)
+        bc = max(1, distance._STRIPE_BYTES // (4 * t.shape[0]))
+        out = torch.empty(xs.shape[0], dtype=torch.int64, device=dev)
+        with distance._full_f32():
+            for b0 in range(0, xs.shape[0], bc):
+                out[b0 : b0 + bc] = (norm[None, :] - 2.0 * (xs_f[b0 : b0 + bc] @ tf.T)).argmin(1)
+        return out
+
+    def lib_topcap(xs, t, cap, seg):
+        """The stripe and selection K11's top-cap replaces: f32 score
+        stripes, packed keys of their order image, `_least` per segment."""
+        xs_f, tf = xs.float(), t.float()
+        norm = (tf * tf).sum(1)
+        l = t.shape[0]
+        nseg = -(-l // seg)
+        cols = torch.arange(nseg * seg, device=dev)
+        bc = max(1, distance._STRIPE_BYTES // (8 * nseg * seg))
+        out = torch.empty((xs.shape[0], nseg, cap), dtype=torch.int64, device=dev)
+        with distance._full_f32():
+            for b0 in range(0, xs.shape[0], bc):
+                bits = (norm[None, :] - 2.0 * (xs_f[b0 : b0 + bc] @ tf.T)).view(torch.int32)
+                order = torch.nn.functional.pad(bits ^ ((bits >> 31) & distance.I32_MAX),
+                                                (0, nseg * seg - l), value=distance.I32_MAX)
+                out[b0 : b0 + bc] = distance._least(
+                    distance._keys(order, cols).view(-1, nseg, seg), cap)
+        return out
+
+    res = {}
+    for key, (b, l, d), k_pre in (("mode4", mode4, 64), ("flagship", flag, 1024)):
+        x, t = _u8(torch, gen, (b, d), dev), _u8(torch, gen, (l, d), dev)
+        t[7] = t[l // 2]  # a tie
+        x[0] = t[l // 2]
+        seg, cap = distance._k11_topcap_plan(l, k_pre)
+        prep = distance._k11_lib(t)
+        s = torch.arange(0, b, 64 if key == "mode4" else 16, device=dev)
+        dd, rr = distance._l2_argmin(x, t)
+        wd, wr = distance._l2_argmin_ref(x[s], t)
+        ea.add(torch, dd[s], wd, f"K11 argmin {key} {b} x {l} x D={d} (sampled)")
+        ea.add(torch, rr[s], wr, f"K11 argmin {key} rows (sampled)")
+        check(int(rr[0]) == 7 and int(dd[0]) == 0, "K11 argmin: the lowest of two equal rows")
+        keys = distance.l2_topcap(x, t, cap, seg=seg, prepared=prep)
+        s2 = s[:: 4 if key == "mode4" else 1]
+        et.add(torch, keys[s2], distance._l2_topcap_ref(x[s2], t, cap, seg, 0, l),
+               f"K11 top-cap {key} seg {seg} cap {cap} (sampled)")
+        nseg = -(-l // seg)
+        ms_a = cuda_ms(torch, lambda: distance._l2_argmin(x, t))
+        ms_t = cuda_ms(torch, lambda: distance.l2_topcap(x, t, cap, seg=seg, prepared=prep), reps=3)
+        res[key] = {"shape": f"{b} x {l} x D={d}", "seg": seg, "cap": cap,
+                    "argmin_ms": ms_a, "topcap_ms": ms_t,
+                    "argmin_bound_ms": bound(b * d + l * d + 8 * b, 2.0 * b * l * d)["bound_ms"],
+                    "topcap_bound_ms": bound(b * d + l * d + 8 * b * nseg * cap,
+                                             2.0 * b * l * d)["bound_ms"]}
+        log(f"K11 {key} {b} x {l} x D={d}: argmin {ms_a:.3f} ms (bound "
+            f"{res[key]['argmin_bound_ms']:.3f}), top-cap seg {seg} cap {cap} {ms_t:.3f} ms "
+            f"(bound {res[key]['topcap_bound_ms']:.3f}); exact on a row sample [{card}]")
+        if key == "mode4":  # the timed slice: kernel, plain version, library, bound
+            xs = x[:rows_t].contiguous()
+            check(torch.equal(lib_argmin(xs, t), distance._l2_argmin(xs, t)[1].long()),
+                  "the f32 route's argmin != K11's at D = 48")
+            tl = {"a": cuda_ms(torch, lambda: distance._l2_argmin(xs, t)),
+                  "a_plain": cuda_ms(torch, lambda: distance._l2_argmin_ref(xs, t), reps=1),
+                  "a_lib": cuda_ms(torch, lambda: lib_argmin(xs, t), reps=2),
+                  "t": cuda_ms(torch, lambda: distance.l2_topcap(xs, t, cap, seg=seg,
+                                                                 prepared=prep)),
+                  "t_plain": cuda_ms(torch, lambda: distance._l2_topcap_ref(
+                      xs, t, cap, seg, 0, l), reps=1),
+                  "t_lib": cuda_ms(torch, lambda: lib_topcap(xs, t, cap, seg), reps=2)}
+            slice_shape = f"{rows_t} x {l} x D={d}"
+            nb_a = rows_t * d + l * d + 8 * rows_t
+            nb_t = rows_t * d + l * d + 8 * rows_t * nseg * cap
+            argmin_row = {"ms": tl["a"], "plain_ms": tl["a_plain"], "library_ms": tl["a_lib"],
+                          **bound(nb_a, 2.0 * rows_t * l * d), "shape": slice_shape}
+            topcap_row = {"ms": tl["t"], "plain_ms": tl["t_plain"], "library_ms": tl["t_lib"],
+                          **bound(nb_t, 2.0 * rows_t * l * d),
+                          "shape": f"{slice_shape}, seg {seg} cap {cap}"}
+            log(f"K11 argmin {slice_shape}: kernel {tl['a']:.3f} ms, bound "
+                f"{argmin_row['bound_ms']:.3f} ms ({argmin_row['bound_by']}); plain "
+                f"{tl['a_plain']:.3f} ms; f32 matmul + argmin {tl['a_lib']:.3f} ms [{card}]")
+            log(f"K11 top-cap {slice_shape} seg {seg} cap {cap}: kernel {tl['t']:.3f} ms, bound "
+                f"{topcap_row['bound_ms']:.3f} ms ({topcap_row['bound_by']}); plain "
+                f"{tl['t_plain']:.3f} ms; f32 matmul + packed keys + torch.topk a segment "
+                f"{tl['t_lib']:.3f} ms [{card}]")
+            del xs
+        del x, t, prep, keys, dd, rr
+        torch.cuda.empty_cache()
+    for row, name in ((argmin_row, "argmin"), (topcap_row, "topcap")):
+        for key in ("mode4", "flagship"):
+            row[f"ms_{key}"] = res[key][f"{name}_ms"]
+            row[f"bound_ms_{key}"] = res[key][f"{name}_bound_ms"]
+            row[f"shape_{key}"] = res[key]["shape"] + (
+                f", seg {res[key]['seg']} cap {res[key]['cap']}" if name == "topcap" else "")
+    argmin_row["max_abs_err"], topcap_row["max_abs_err"] = ea.max, et.max
+    topcap_row["prefilter_past_fast_plans"] = nr_rows
+    return argmin_row, topcap_row
+
+
 def phase_c_k5(torch, gen, dev, card) -> dict:
     from emosaic_tpu_torch.ops import composite_lab as lab
 
@@ -1166,7 +1370,8 @@ def _no_fallback(lab: bool = False):
         names = [(distance, "l1_argmin_ref"), (composite, "compose_rows_ref"),
                  (distance, "_l1_rows_ref"), (distance, "_seg_topcap_ref"),
                  (distance, "_coarse_topcap_ref"), (distance, "_l1_block_ref"),
-                 (distance, "_l1_topcap_ref")]
+                 (distance, "_l1_topcap_ref"), (distance, "_l2_argmin_ref"),
+                 (distance, "_l2_topcap_ref"), (distance, "_l2_dense")]
 
     @contextlib.contextmanager
     def ctx():
@@ -1182,6 +1387,35 @@ def _no_fallback(lab: bool = False):
         finally:
             for (mod, name), fn in zip(names, saved):
                 setattr(mod, name, fn)
+
+    return ctx()
+
+
+def _uncertified():
+    """Context: count the rows of the hybrid prefilter's first pass
+    ("rows") and those that fail its certificate (`distance._l2_least`'s
+    ok) and so run again with whole segments ("failed"), in the dict it
+    yields."""
+    import contextlib
+
+    from emosaic_tpu_torch.ops import distance
+
+    @contextlib.contextmanager
+    def ctx():
+        real, tally = distance._l2_least, {"rows": 0, "failed": 0}
+
+        def counted(x, t, k_pre, seg, cap, prepared):
+            rows, ok = real(x, t, k_pre, seg, cap, prepared)
+            if cap < seg:  # not the rerun, whose segments are whole
+                tally["rows"] += x.shape[0]
+                tally["failed"] += int((~ok).sum())
+            return rows, ok
+
+        distance._l2_least = counted
+        try:
+            yield tally
+        finally:
+            distance._l2_least = real
 
     return ctx()
 
@@ -1714,7 +1948,7 @@ def phase_h(torch, gen, dev, card, t_tiles=100000, side4=2048, t=32767, side_n=4
     times, out = {}, {}
     for kern in KERNELS:
         kern.launches = 0
-    with _no_fallback():
+    with _no_fallback(), _uncertified() as unc:
         for name, kw in (("hybrid", {"hybrid": True}), ("l2", {"metric": "l2"})):
             t0 = time.perf_counter()
             out[name] = render_nto1(src4, ts4, 16, device=dev, compose=False, **kw)
@@ -1743,6 +1977,12 @@ def phase_h(torch, gen, dev, card, t_tiles=100000, side4=2048, t=32767, side_n=4
     for ln in lines:
         log(f"H {ln.strip()}")
     log(f"H launches in this slice's paths: {launches}")
+    log(f"H hybrid prefilter: {unc['failed']} of {unc['rows']} rows failed the certificate "
+        f"(run again with whole segments on K11)")
+    # the plans' caps leave the certificate a rare tail: a plan that lost
+    # its margin would send many rows through a second pass
+    check(unc["failed"] <= unc["rows"] // 100,
+          f"{unc['failed']} of {unc['rows']} rows of phase H's prefilter failed the certificate")
 
     # mode 4 hybrid: exact L1 distances for its rows, and how often its row
     # is the exact argmin's (the candidate set is L2-preselected)
@@ -2677,6 +2917,7 @@ def main() -> int:
         k4 = phase_c_k4(torch, gen, dev, card)
         k9 = phase_c_k9(torch, gen, dev, card, fadd_rate(torch, dev, card))
         k10s, k10t = phase_c_k10(torch, gen, dev, card, rate)
+        k11a, k11t = phase_c_k11(torch, gen, dev, card)
         k5 = phase_c_k5(torch, gen, dev, card)
         k6, k7 = phase_c_k6_k7(torch, gen, dev, card)
         k8 = phase_c_k8(torch, gen, dev, card)
@@ -2708,7 +2949,8 @@ def main() -> int:
         for path, counts, names in [("D", launches_d, ("l1_argmin", "compose")),
                                     ("N", launches_n, ("l1_rows", "coarse_topcap", "compose")),
                                     ("N's worst case", launches_w, ("l1_topcap", "l1_stripe")),
-                                    ("H", launches_h, ("l1_rows", "compose")),
+                                    ("H", launches_h, ("l1_rows", "compose", "l2_argmin",
+                                                       "l2_topcap")),
                                     ("S", launches_s, ("l1_argmin", "compose", "l1_stripe")),
                                     ("P", launches_p, ("l1_argmin", "compose", "l1_rows",
                                                        "coarse_topcap", "l1_topcap")),
@@ -2734,6 +2976,8 @@ def main() -> int:
         (KERNELS[8], k9, "tools/tpu_r14_seg8.py:62", launches_n),
         (KERNELS[9], k10s, "emosaic_tpu/ops/distance.py:1094", launches_w),
         (KERNELS[10], k10t, "emosaic_tpu/ops/distance.py:1121", launches_w),
+        (KERNELS[11], k11a, "emosaic_tpu/ops/distance.py:909", launches_h),
+        (KERNELS[12], k11t, "emosaic_tpu/ops/distance.py:706", launches_h),
     ]:
         rows.append({
             "name": k.name, "route": "cuda",
@@ -2749,6 +2993,10 @@ def main() -> int:
                                 ":863 (_l1_matrix_jit): XLA-fused stripes, no Pallas kernel")
     rows[10]["also_replaces"] = ("the XLA-fused stripe + lax.top_k of _l1_topk_twolevel_jit, no "
                                  "Pallas kernel; its selection is tools/tpu_r14_seg8.py:62's")
+    rows[11]["also_replaces"] = ("none: _l2_argmin_jit's XLA dot + argmin "
+                                 "(emosaic_tpu/ops/distance.py:908-940), no Pallas kernel")
+    rows[12]["also_replaces"] = ("none: _mxu_prefilter_jit's XLA dot + approx_min_k "
+                                 "(emosaic_tpu/ops/distance.py:703-723), no Pallas kernel")
     rows[1]["also_replaces"] = "emosaic_tpu/ops/composite.py:82"
     rows[2]["also_replaces"] = "tools/tpu_r19_flatdma.py:48"
     rows[2]["launches_h"] = launches_h["l1_rows"]

@@ -179,8 +179,24 @@ L1_TOPCAP = CudaKernel(
     "emosaic_l1_topcap",
     [_I, _P, _P, _P, _L, _L, _I, _L, _L, _I, _I, _L, _L, _I, _I, _P],
 )
+#: csrc/l2_score.cu, the squared-L2 argmin (see ops/distance.py `l2_argmin`)
+L2_ARGMIN = CudaKernel(
+    "l2_argmin",
+    "emosaic_l2_argmin",
+    [_I, _P, _P, _P, _P, _P, _L, _L, _I, _L, _L, _L, _I, _P],
+    source="l2_score",
+)
+#: csrc/l2_score.cu, the fused per-segment squared-L2 top-cap (see
+#: ops/distance.py `l2_topcap`)
+L2_TOPCAP = CudaKernel(
+    "l2_topcap",
+    "emosaic_l2_topcap",
+    [_I, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _L, _L, _L, _L, _L, _I, _P],
+    source="l2_score",
+)
 KERNELS = (L1_ARGMIN, COMPOSE, L1_ROWS, SEG_TOPCAP, FLOOR_WRITE, COMPOSE_BULK,
-           COMPOSE_BULK2, BAND_TRANSPOSE, COARSE_TOPCAP, L1_STRIPE, L1_TOPCAP)
+           COMPOSE_BULK2, BAND_TRANSPOSE, COARSE_TOPCAP, L1_STRIPE, L1_TOPCAP,
+           L2_ARGMIN, L2_TOPCAP)
 
 
 def build_all(kernels=KERNELS, force: bool = False) -> dict:

@@ -29,7 +29,11 @@ The torch counterpart of `emosaic_tpu/ops/distance.py`.
   argmins under their names (over K10's stripes, and the plain scan).
 - `l1_topk_hybrid`, `l1_argmin_hybrid` (`--matcher hybrid`) and
   `l2_argmin` (`--metric l2`): the approximate squared-L2 prefilter with
-  an exact-L1 rescore on K3, and the squared-L2 argmin.
+  an exact-L1 rescore on K3, and the squared-L2 argmin. Both score in
+  exact integers on the hand-written kernel K11 `csrc/l2_score.cu`
+  (tensor-core u8 products): its argmin entry (`_l2_argmin`, plain
+  version `_l2_argmin_ref`) and its fused per-segment top-cap
+  (`l2_topcap`, plain version `_l2_topcap_ref`), the prefilter's stage 1.
 - `DeviceRefiller`: the batched masked top-k refill of the no-repeat
   assignment engine.
 
@@ -77,6 +81,8 @@ from emosaic_tpu_torch.ops._kernels import (
     L1_ROWS,
     L1_STRIPE,
     L1_TOPCAP,
+    L2_ARGMIN,
+    L2_TOPCAP,
     SEG_TOPCAP,
 )
 
@@ -773,9 +779,15 @@ def _twolevel_keys(x, t, kk: int, cap: int, col0: int = 0, real_l: int | None = 
     int64 ascending, ok [r] bool): a row is exact when every segment's
     cap-th kept distance is strictly above its kk-th (a truncated tie
     could hide a lower col)."""
-    seg = l1_topcap(x, t, cap, col0=col0, real_l=real_l)
+    return _certified_least(l1_topcap(x, t, cap, col0=col0, real_l=real_l), kk)
+
+
+def _certified_least(seg: torch.Tensor, kk: int):
+    """Stage 2 over stage-1 keys seg [r, nseg, cap]: the kk least survivors
+    and each row's certificate (every segment's cap-th kept distance
+    strictly above the kk-th)."""
     sel = _least(seg.flatten(1), kk)
-    ok = ((seg[:, :, cap - 1] >> 32) > (sel[:, kk - 1 :] >> 32)).all(dim=1)
+    ok = ((seg[:, :, -1] >> 32) > (sel[:, kk - 1 :] >> 32)).all(dim=1)
     return sel, ok
 
 
@@ -1648,29 +1660,166 @@ def l1_topk_streamed(blocks, lib, k: int, *, bank_rows: int | None = None,
 
 
 # ---------------------------------------------------------------------------
-# Hybrid: squared-L2 prefilter + exact-L1 rescore (K3), and the L2 argmin
+# Hybrid: squared-L2 prefilter + exact-L1 rescore (K3), and the L2 argmin,
+# both scored on K11
 #
 # APPROXIMATE and opt-in (`--matcher hybrid`, `--metric l2`), as in the
-# JAX package: the hybrid's candidates are the k_pre rows of least
-# squared-L2 score, re-ranked and distanced in exact int32 L1, and the
-# candidate set is not guaranteed to hold the L1 top k. The score is
-# |t|^2 - 2 x.t (|x|^2 is constant per query): a plain f32 matrix product
-# of the u8 values (exact in f32) with TF32 off (`_full_f32`). Every score
-# is an exact integer while 255^2 * D < 2^24 (D <= 258, modes <= 9);
-# above that the card's sum order may differ from the CPU's. The selection
-# is exact, lowest row first among equal scores (a packed key over an
-# order-preserving int32 image of the score). The JAX package's
-# approx_min_k returns the same scores on the CPU, but which of several
-# equal scores at its cut it keeps follows no rule: an accepted divergence
-# (README), pinned by the tied-data tests of tests/test_torch_hybrid.py.
+# JAX package: the hybrid's candidates are the k_pre rows of least squared
+# L2 distance, re-ranked and distanced in exact int32 L1, and the
+# candidate set is not guaranteed to hold the L1 top k. The squared
+# distances are exact integers: K11 (`csrc/l2_score.cu`) takes the u8
+# product on the tensor cores in s32 and forms |x|^2 + |t|^2 - 2 x.t; the
+# plain versions take an f64 product of the u8 values (`_l2_dense`, exact
+# for any D). The JAX package scores |t|^2 - 2 x.t (|x|^2 is constant per
+# query) in f32, exact while 255^2 * D < 2^24 (D <= 258, modes <= 9):
+# there both orders agree, lowest row first among equal scores. Above that
+# the JAX package's order follows its f32 sums, and the port's is the
+# exact one (README). The JAX package's approx_min_k returns the same
+# scores on the CPU, but which of several equal scores at its cut it
+# keeps follows no rule: an accepted divergence (README), pinned by the
+# tied-data tests of tests/test_torch_hybrid.py.
+#
+# The prefilter is the two-level selection of `l1_topk_twolevel` under
+# squared L2: `l2_topcap` keeps each segment's cap least keys (K11's fused
+# entry writes no [rows, L] stripe), `_certified_least` the k_pre least
+# survivors and each row's certificate, and rows that do not certify run
+# again with every 128-row segment kept whole, exact by construction.
 # ---------------------------------------------------------------------------
+
+#: K11's tiles (`csrc/l2_score.cu`): the depth of one tensor-core step
+#: (rows pad to a multiple of it), the argmin's (query, library) tile, a
+#: top-cap item's scores (query rows x segment), the segments a plan may
+#: pick (longest first), the largest cap the selection takes from the 32
+#: group minima (a larger one ranks the whole segment, seg^2 compares a
+#: row), the widest padded rows of the argmin's packed key (the faster
+#: epilogue up to here on an H100; the key itself fits up to 4128 bytes),
+#: the first padded width whose dot products take the split depth
+#: (255^2 * dp >= 2^31), and the widest rows (dist^2 < 2^32)
+_K11_KC = 32
+_K11_ARG_TILE = (128, 256)
+_K11_TILE_SCORES = 32768
+_K11_SEGS = (1024, 512, 256, 128)
+_K11_GROUP_CAP = 32
+_K11_PACKED_MAX_DP = 128
+_K11_SPLIT_MIN_DP = 33056
+_K11_D_MAX = 66051
+#: the widest padded rows whose top-cap keys pack into u32: dist^2 << 10 |
+#: position (the kernel's PACKED_TOP_MAX_DP)
+_K11_PACKED_TOP_MAX_DP = 64
+#: K11's ring of cp.async stages (rows of 32 bytes at a 48-byte stride),
+#: its warps a block, the argmin's slots of 256-entry |t|^2 rows (a tile's
+#: row lands with its first k-step, so the ring must stay shorter than the
+#: slots) and its shared memory: the ring, the slots and the query tile's
+#: |x|^2
+_K11_ROWB = 48
+_K11_STAGES = 3
+_K11_WARPS = 16
+_K11_TN_SLOTS = 4
+_K11_ARG_SMEM = (_K11_STAGES * sum(_K11_ARG_TILE) * _K11_ROWB
+                 + _K11_TN_SLOTS * _K11_ARG_TILE[1] * 4 + _K11_ARG_TILE[0] * 4)
+#: argmin blocks an SM (one at a time) that fill the card: fewer query
+#: tiles split the library
+_K11_ARG_WAVES = 2
+
+
+def _k11_dp(d: int) -> int:
+    """K11's row width: d bytes zero-padded to a multiple of 32."""
+    return max(_K11_KC, -(-d // _K11_KC) * _K11_KC)
+
+
+def _k11_bias(dp: int) -> int:
+    """The top-cap keys' offset of dist^2: 2^31 where dist^2 may reach 2^31
+    (so the high word keeps its order as a signed int), else 0."""
+    return 1 << 31 if dp >= _K11_SPLIT_MIN_DP else 0
+
+
+def _k11_topcap_smem(seg: int) -> int:
+    """A top-cap block's shared memory: the ring or, over it after the
+    product, the u32 [bm, seg + 8] dist^2 tile, whichever is larger, then
+    |x|^2, |t|^2 and sixteen warps' u16 candidate lists."""
+    bm = _K11_TILE_SCORES // seg
+    ring = _K11_STAGES * (bm + seg) * _K11_ROWB
+    return max(ring, bm * (seg + 8) * 4) + (bm + seg) * 4 + _K11_WARPS * seg * 2
+
+
+def _k11_argmin_plan(rows: int, l: int, d: int, sms: int) -> tuple[int, int, int, int]:
+    """K11's argmin launch for `rows` u8 rows of d bytes against l library
+    rows on `sms` SMs: (row width, query tiles, library splits, library
+    tiles a split). The library splits until the blocks reach
+    `_K11_ARG_WAVES` an SM, at most one split a library tile."""
+    bm, bn = _K11_ARG_TILE
+    nqt = -(-rows // bm)
+    ntl = -(-l // bn)
+    tps = -(-ntl // max(1, min(ntl, -(-_K11_ARG_WAVES * sms // nqt))))
+    return _k11_dp(d), nqt, -(-ntl // tps), tps
+
+
+def _k11_cap(k_pre: int, l: int, seg: int) -> int:
+    """Survivors a segment keeps for a k_pre cut: the expected members of
+    the k_pre in a segment, e = k_pre * seg / l, plus 4 sqrt(e) + 4 (on
+    data without runs of similar rows, a tail the certificate rarely
+    reaches)."""
+    e = k_pre * seg / l
+    return math.ceil(e + 4 * math.sqrt(e) + 4)
+
+
+def _k11_topcap_plan(l: int, k_pre: int) -> tuple[int, int]:
+    """(segment length, cap) of the prefilter's stage 1 for k_pre <= l: the
+    longest segment whose cap is at most 32 and at most seg / 16 (the
+    survivors stay within 1/16 of the positions) and whose survivors hold
+    k_pre. Where k_pre is too large a share of the library for any, 128-row
+    segments with their cap, raised until the survivors hold k_pre, at most
+    the whole segment (caps above 32 rank the whole segment)."""
+    for seg in _K11_SEGS:
+        cap = _k11_cap(k_pre, l, seg)
+        if cap <= min(_K11_GROUP_CAP, seg // 16) and -(-l // seg) * cap >= k_pre:
+            return seg, cap
+    nseg = -(-l // _TL_SEG)
+    return _TL_SEG, min(_TL_SEG, max(_k11_cap(k_pre, l, _TL_SEG), -(-k_pre // nseg)))
+
+
+def _wrap32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values as int32 holding their low 32 bits."""
+    return (((v + (1 << 31)) & _MASK32) - (1 << 31)).to(torch.int32)
+
+
+def _sq_norms(x: torch.Tensor) -> torch.Tensor:
+    """|row|^2 of u8 rows as int32 holding the low 32 bits (exact below
+    2^31: D <= 33025), in row chunks of bounded int32 temporaries."""
+    out = torch.empty(x.shape[0], dtype=torch.int64, device=x.device)
+    step = max(1, _RESCORE_I32_BYTES // (4 * max(x.shape[1], 1)))
+    for r0 in range(0, x.shape[0], step):
+        xi = x[r0 : r0 + step].to(torch.int32)
+        out[r0 : r0 + step] = (xi * xi).sum(1, dtype=torch.int64)
+    return _wrap32(out)
+
+
+def _k11_lib(t: torch.Tensor):
+    """K11's library operand, made once a library: (its rows zero-padded to
+    `_k11_dp` bytes and 16-byte aligned, |t|^2 from `_sq_norms`)."""
+    return _pad_words(t, _k11_dp(t.shape[1]), 16), _sq_norms(t)
+
+
+def _check_l2(x: torch.Tensor, t: torch.Tensor, what: str) -> None:
+    if x.dtype != torch.uint8 or t.dtype != torch.uint8:
+        raise TypeError(f"{what} takes uint8, got {x.dtype}/{t.dtype}")
+    if x.dim() != 2 or t.dim() != 2 or x.shape[1] != t.shape[1] or t.shape[0] == 0:
+        raise ValueError(f"shapes {tuple(x.shape)} / {tuple(t.shape)}")
+    if x.shape[1] > _K11_D_MAX:
+        raise ValueError(f"rows of {x.shape[1]} bytes: squared distances reach 2^32 "
+                         f"(at most {_K11_D_MAX} bytes)")
+    if x.device != t.device:
+        raise ValueError(f"devices differ: {x.device} / {t.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
 
 
 @contextlib.contextmanager
 def _full_f32():
     """float32 matrix products in full float32 inside the block, whatever
     the process-wide setting: TF32 keeps 10 mantissa bits and would round
-    the integer sums of the L2 scores."""
+    integer sums. The L2 routes no longer take f32 products; the f32
+    route K11 replaced is `chip_smoke.py`'s yardstick for it."""
     prev = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("highest")
     try:
@@ -1679,41 +1828,205 @@ def _full_f32():
         torch.set_float32_matmul_precision(prev)
 
 
-def _f32_order(x: torch.Tensor) -> torch.Tensor:
-    """An int32 image of f32 values with their order (NaN aside): the bits,
-    with the magnitude bits of negative values flipped."""
-    bits = x.view(torch.int32)
-    return bits ^ ((bits >> 31) & I32_MAX)
-
-
-def _lib_f32_chunks(t: torch.Tensor):
-    """Yield (row0, t [rows, D] f32, |t|^2 [rows] f32) over library chunks
-    of at most `_BLOCK_F32_BYTES` of f32."""
+def _l2_dense(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Exact squared distances int64 [r, L] of u8 rows x against t:
+    |x|^2 + |t|^2 - 2 x.t from an f64 product of the u8 values (every
+    partial sum an integer below 2^53, exact in any order), over library
+    chunks of `_BLOCK_F32_BYTES // (4 D)` rows (the chunks of the f32 route
+    that came before; twice their bytes in f64)."""
+    xd = x.double()
+    xn = (xd * xd).sum(1)
+    out = torch.empty((x.shape[0], t.shape[0]), dtype=torch.int64, device=x.device)
     ch = max(1, _BLOCK_F32_BYTES // (4 * max(t.shape[1], 1)))
     for t0 in range(0, t.shape[0], ch):
-        tf = t[t0 : t0 + ch].float()
-        yield t0, tf, (tf * tf).sum(1)
+        tf = t[t0 : t0 + ch].double()
+        out[:, t0 : t0 + ch] = (xn[:, None] + (tf * tf).sum(1)[None, :]
+                                - 2.0 * (xd @ tf.T)).to(torch.int64)
+    return out
+
+
+def _l2_argmin_ref(x: torch.Tensor, t: torch.Tensor):
+    """Plain torch version of K11's argmin entry: `_l2_dense`'s exact
+    squared distances in row chunks, the first least of each row, so the
+    lowest row wins ties. Returns (dist^2 [r] int32, wrapping past D =
+    33025 as the JAX package's int32 does; row [r] int32)."""
+    dist = torch.empty(x.shape[0], dtype=torch.int64, device=x.device)
+    row = torch.empty(x.shape[0], dtype=torch.int64, device=x.device)
+    bc = _stripe_rows(t.shape[0], 8)
+    for b0 in range(0, x.shape[0], bc):
+        dist[b0 : b0 + bc], row[b0 : b0 + bc] = _l2_dense(x[b0 : b0 + bc], t).min(dim=1)
+    return _wrap32(dist), row.to(torch.int32)
+
+
+def _l2_argmin_cuda(x: torch.Tensor, t: torch.Tensor):
+    rows, d = x.shape
+    l = t.shape[0]
+    keys = torch.full((rows,), -1, dtype=torch.int64, device=x.device)  # ~0 as u64
+    if rows:
+        tp, tn = _k11_lib(t)
+        dp = tp.shape[1]
+        xp, xn = _pad_words(x, dp, 16), _sq_norms(x)
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        _, nqt, nsplit, tps = _k11_argmin_plan(rows, l, d, sms)
+        L2_ARGMIN.launch(
+            x.device.index,
+            ctypes.c_void_p(xp.data_ptr()),
+            ctypes.c_void_p(tp.data_ptr()),
+            ctypes.c_void_p(xn.data_ptr()),
+            ctypes.c_void_p(tn.data_ptr()),
+            ctypes.c_void_p(keys.data_ptr()),
+            rows,
+            l,
+            dp,
+            nqt,
+            nsplit,
+            tps,
+            _K11_ARG_SMEM,
+            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+        )
+    return _unkey(keys)
+
+
+def _l2_argmin(x: torch.Tensor, t: torch.Tensor):
+    """(dist^2 [r] int32, row [r] int32) on x's device: the least squared
+    distance of each u8 row of x against the rows of t, the lowest row
+    among equal ones; dist^2 wraps past D = 33025 as the JAX package's
+    int32 does. A CUDA tensor goes to K11's argmin entry
+    (`csrc/l2_score.cu`), which writes no [r, L] score stripe; a CPU
+    tensor to `_l2_argmin_ref`."""
+    _check_l2(x, t, "l2 argmin")
+    if x.device.type == "cpu":
+        return _l2_argmin_ref(x, t)
+    return _l2_argmin_cuda(x, t)
+
+
+def _l2_topcap_ref(x: torch.Tensor, t: torch.Tensor, cap: int, seg: int, col0: int,
+                   real_l: int) -> torch.Tensor:
+    """Plain torch version of K11's fused entry: `_l2_dense`'s exact
+    squared distances less the bias, the last segment's missing positions
+    and the cols at or past real_l set to I32_MAX, then each segment's cap
+    least packed keys by `_least`, in bounded row chunks. Returns int64
+    [r, nseg, cap]."""
+    rows, l = x.shape[0], t.shape[0]
+    nseg = -(-l // seg)
+    lp = nseg * seg
+    bias = _k11_bias(_k11_dp(x.shape[1]))
+    cols = torch.arange(col0, col0 + lp, device=x.device)
+    out = torch.empty((rows, nseg, cap), dtype=torch.int64, device=x.device)
+    bc = _stripe_rows(lp, 8)
+    for r0 in range(0, rows, bc):
+        hi = torch.nn.functional.pad(_l2_dense(x[r0 : r0 + bc], t) - bias, (0, lp - l),
+                                     value=I32_MAX)
+        hi.masked_fill_(cols >= real_l, I32_MAX)
+        out[r0 : r0 + bc] = _least(_keys(hi, cols).view(-1, nseg, seg), cap)
+        del hi
+    return out
+
+
+def _l2_topcap_cuda(x: torch.Tensor, prepared, cap: int, seg: int, col0: int,
+                    real_l: int) -> torch.Tensor:
+    tp, tn = prepared
+    rows = x.shape[0]
+    l, dp = tp.shape
+    nseg = -(-l // seg)
+    out = torch.empty((rows, nseg, cap), dtype=torch.int64, device=x.device)
+    if rows == 0:
+        return out
+    xp, xn = _pad_words(x, dp, 16), _sq_norms(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    bm = _K11_TILE_SCORES // seg
+    step = max(1, I32_MAX // nseg) * bm  # items (query tiles x segments) fit an int
+    for r0 in range(0, rows, step):
+        r = min(step, rows - r0)
+        nqt = -(-r // bm)
+        L2_TOPCAP.launch(
+            x.device.index,
+            ctypes.c_void_p(xp[r0 : r0 + r].data_ptr()),
+            ctypes.c_void_p(tp.data_ptr()),
+            ctypes.c_void_p(xn[r0 : r0 + r].data_ptr()),
+            ctypes.c_void_p(tn.data_ptr()),
+            ctypes.c_void_p(out[r0 : r0 + r].data_ptr()),
+            r,
+            l,
+            dp,
+            seg,
+            cap,
+            col0,
+            max(0, min(l, real_l - col0)),
+            _k11_bias(dp),
+            nqt,
+            nqt * nseg,
+            _k11_topcap_smem(seg),
+            ctypes.c_void_p(stream),
+        )
+    return out
+
+
+def l2_topcap(x: torch.Tensor, t: torch.Tensor, cap: int, *, seg: int = _TL_SEG,
+              col0: int = 0, real_l: int | None = None, prepared=None) -> torch.Tensor:
+    """Stage 1 of the two-level top-k under squared L2, the contract of
+    `l1_topcap` with `seg`-row segments (128, 256, 512 or 1024): for u8
+    query rows x [r, D] against library rows t [L, D] (L >= 1, D <= 66051)
+    on one device, where row j of t has the col col0 + j, each segment
+    keeps its `cap` least keys ((dist^2 - bias) << 32) | col, ascending,
+    the lowest col first among equal distances; bias is 2^31 for rows
+    padded past 33024 bytes (`_k11_bias`, where dist^2 may pass 2^31),
+    else 0. Positions whose col is at least real_l (default col0 + L), and
+    the last segment's positions past L, are padding with the key
+    (I32_MAX << 32) | col. 1 <= cap <= seg (a cap above 32 ranks the whole
+    segment). Returns int64 [r, nseg, cap], nseg = ceil(L / seg).
+
+    A CUDA tensor goes to K11's fused entry (`csrc/l2_score.cu`), which
+    never writes the [r, L] stripe; `prepared` (`_k11_lib(t)`) spares the
+    library's padding and norms on a repeated t. A CPU tensor goes to
+    `_l2_topcap_ref`.
+    """
+    _check_l2(x, t, "l2_topcap")
+    if seg not in _K11_SEGS:
+        raise ValueError(f"seg must be one of {_K11_SEGS}, got {seg}")
+    if not 1 <= cap <= seg:
+        raise ValueError(f"cap must be in 1..{seg}, got {cap}")
+    nseg = -(-t.shape[0] // seg)
+    if col0 < 0 or col0 + nseg * seg > I32_MAX:
+        raise ValueError(f"cols {col0}..{col0 + nseg * seg} do not fit int32")
+    real_l = col0 + t.shape[0] if real_l is None else real_l
+    if x.device.type == "cpu":
+        return _l2_topcap_ref(x, t, cap, seg, col0, real_l)
+    return _l2_topcap_cuda(x, prepared or _k11_lib(t), cap, seg, col0, real_l)
+
+
+def _l2_least(x: torch.Tensor, t: torch.Tensor, k_pre: int, seg: int, cap: int,
+              prepared) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both stages for the rows x: `l2_topcap`, then `_certified_least`.
+    Returns (the k_pre least rows int32 [r, k_pre], ascending by (dist^2,
+    row); ok [r] bool). A segment kept whole (cap = seg) loses nothing, so
+    there every row is exact."""
+    sel, ok = _certified_least(l2_topcap(x, t, cap, seg=seg, prepared=prepared), k_pre)
+    return (sel & _MASK32).to(torch.int32), ok | (cap == seg)
 
 
 def _l2_prefilter(x: torch.Tensor, t: torch.Tensor, k_pre: int) -> torch.Tensor:
-    """The k_pre library rows of least squared-L2 score per block (the JAX
-    package's `_mxu_prefilter_jit`), selected exactly, over library chunks
-    folded on packed keys. Returns int32 rows [B, k_pre] on x's device."""
-    b = x.shape[0]
-    best = None
-    with _full_f32():
-        for t0, tf, norm in _lib_f32_chunks(t):
-            lc = tf.shape[0]
-            kc = min(k_pre, lc)
-            cols = torch.arange(t0, t0 + lc, device=x.device)
-            part = torch.empty((b, kc), dtype=torch.int64, device=x.device)
-            bc = max(1, _STRIPE_BYTES // (8 * lc))
-            for b0 in range(0, b, bc):
-                score = norm[None, :] - 2.0 * (x[b0 : b0 + bc].float() @ tf.T)
-                part[b0 : b0 + bc] = _least(_keys(_f32_order(score), cols), kc)
-                del score
-            best = part if best is None else _least(torch.cat([best, part], 1), k_pre)
-    return (best & _MASK32).to(torch.int32)
+    """The k_pre library rows of least squared distance per block (the JAX
+    package's `_mxu_prefilter_jit`), selected exactly, the lowest rows
+    first among equal distances: `_l2_least` with the plan's segment and
+    cap (`_k11_topcap_plan`) in row chunks, and again with every 128-row
+    segment kept whole for the rows that do not certify. Returns int32
+    rows [B, k_pre] on x's device."""
+    b, l = x.shape[0], t.shape[0]
+    seg, cap = _k11_topcap_plan(l, k_pre)
+    prepared = _k11_lib(t) if x.device.type == "cuda" else None
+    out = torch.empty((b, k_pre), dtype=torch.int32, device=x.device)
+    ok = torch.empty(b, dtype=torch.bool, device=x.device)
+    bc = _twolevel_rows(-(-l // seg), cap)
+    for b0 in range(0, b, bc):
+        out[b0 : b0 + bc], ok[b0 : b0 + bc] = _l2_least(x[b0 : b0 + bc], t, k_pre, seg, cap,
+                                                        prepared)
+    bad = torch.nonzero(~ok)[:, 0]
+    bc = _twolevel_rows(-(-l // _TL_SEG), _TL_SEG)
+    for b0 in range(0, bad.numel(), bc):
+        rows = bad[b0 : b0 + bc]
+        out[rows] = _l2_least(x[rows], t, k_pre, _TL_SEG, _TL_SEG, prepared)[0]
+    return out
 
 
 def _l1_rescore(x: torch.Tensor, cand: torch.Tensor, lib: torch.Tensor, k: int):
@@ -1726,8 +2039,8 @@ def _l1_rescore(x: torch.Tensor, cand: torch.Tensor, lib: torch.Tensor, k: int):
 
 
 def l1_topk_hybrid(blocks, lib, k: int, *, k_pre: int | None = None, device=None):
-    """Approximate k nearest rows: the squared-L2 prefilter, then an exact
-    L1 rescore on K3 (section comment above).
+    """Approximate k nearest rows: the squared-L2 prefilter (K11), then an
+    exact L1 rescore on K3 (section comment above).
 
     Returned distances are exact int32 L1 for the returned rows, ascending
     by (distance, row); the candidate set is L2-preselected. k_pre defaults
@@ -1760,41 +2073,17 @@ def l1_argmin_hybrid(blocks, lib, *, k_pre: int = 64, device=None):
     return d[:, 0], r[:, 0]
 
 
-def _l2_argmin(x: torch.Tensor, t: torch.Tensor):
-    """The first least score per block, over library chunks folded
-    strictly-less in ascending order, and the winner's exact int32 squared
-    distance (wrapping past D = 33025, as the JAX package's int32 does)."""
-    b = x.shape[0]
-    best_s = torch.full((b,), float("inf"), device=x.device)
-    best_r = torch.zeros((b,), dtype=torch.int64, device=x.device)
-    with _full_f32():
-        for t0, tf, norm in _lib_f32_chunks(t):
-            bc = max(1, _STRIPE_BYTES // (4 * tf.shape[0]))
-            for b0 in range(0, b, bc):
-                score = norm[None, :] - 2.0 * (x[b0 : b0 + bc].float() @ tf.T)
-                r = score.argmin(dim=1)  # the first minimum
-                s = score.gather(1, r[:, None])[:, 0]
-                take = s < best_s[b0 : b0 + bc]
-                best_s[b0 : b0 + bc] = torch.where(take, s, best_s[b0 : b0 + bc])
-                best_r[b0 : b0 + bc] = torch.where(take, r + t0, best_r[b0 : b0 + bc])
-                del score
-    dist = torch.empty((b,), dtype=torch.int32, device=x.device)
-    rows = max(1, _RESCORE_I32_BYTES // (4 * max(x.shape[1], 1)))
-    for b0 in range(0, b, rows):
-        diff = x[b0 : b0 + rows].to(torch.int32) - t[best_r[b0 : b0 + rows]].to(torch.int32)
-        dist[b0 : b0 + rows] = (diff * diff).sum(1, dtype=torch.int32)
-    return _host(dist), _host(best_r.to(torch.int32))
-
-
 def l2_argmin(blocks, lib, *, device=None):
     """Nearest library row under squared L2 (`--metric l2`): a performance
     mode beyond the reference, which matches in L1 only.
 
-    Returns host numpy (dist_sq [B] int32, row [B] int32); the row is the
-    first least f32 score, so ties may resolve differently from the L1
-    kernels. A library whose 3x (the JAX package's u8 + bf16 working set)
-    exceeds the device budget streams in banks of a third of it through
-    this same function, folded on (distance, lowest row).
+    Returns host numpy (dist_sq [B] int32, row [B] int32): the least exact
+    squared distance (wrapping past D = 33025) and the lowest row among
+    equal ones, so ties may resolve differently from the L1 kernels; on
+    the card, K11's argmin entry. A library whose 3x (the JAX package's u8
+    + bf16 working set) exceeds the device budget streams in banks of a
+    third of it through this same function, folded on (distance, lowest
+    row).
     """
     dev = _device_of(blocks, device)
     blocks, lib = _as_u8(blocks), _as_u8(lib)
@@ -1811,7 +2100,8 @@ def l2_argmin(blocks, lib, *, device=None):
             blocks, lib, 1, bank_rows=rb, scorer=bank_scorer, device=dev
         )
         return da[:, 0], ra[:, 0]
-    return _l2_argmin(blocks.to(dev), lib.to(dev))
+    dist, row = _l2_argmin(blocks.to(dev), lib.to(dev))
+    return _host(dist), _host(row)
 
 
 # ---------------------------------------------------------------------------

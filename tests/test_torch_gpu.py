@@ -1,4 +1,4 @@
-"""K1 to K10 against their plain torch versions on an NVIDIA GPU, and the
+"""K1 to K11 against their plain torch versions on an NVIDIA GPU, and the
 sharded routes of `parallel/` on a virtual mesh of the one card.
 
 A CUDA kernel has no CPU mode, so these tests are marked `cuda` and skip
@@ -24,6 +24,8 @@ from emosaic_tpu_torch.ops._kernels import (
     L1_ROWS,
     L1_STRIPE,
     L1_TOPCAP,
+    L2_ARGMIN,
+    L2_TOPCAP,
     SEG_TOPCAP,
 )
 
@@ -547,6 +549,176 @@ def test_l1_argmin_stripes_on_k10_equals_k1(cuda, d):
     want = distance.l1_argmin(blocks, lib)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# K11 (`csrc/l2_score.cu`): the squared-L2 argmin and the per-segment
+# top-cap on the tensor cores, bit for bit against their plain versions:
+# D padded to 32 bytes (3, 12, 48, 192), the argmin's packed key at its
+# widest rows (128) and the (dist^2, col) compare past it (129 to 4160),
+# the split depth (49152), odd L, duplicated rows and tie storms; the
+# top-cap's caps from the 32 group minima and above them (the whole
+# segment ranked).
+
+
+def _k11_lib(rng, kind, l, d, dev):
+    if kind == "storm":  # four distinct rows: every cut falls in a tie
+        return torch.from_numpy(np.tile(rng.integers(0, 256, size=(4, d), dtype=np.uint8),
+                                        (-(-l // 4), 1))[:l]).to(dev)
+    t = _u8(rng, (l, d), dev)
+    if kind == "duplicates":
+        t[l // 2 :] = t[: l - l // 2].clone()
+    return t
+
+
+@pytest.mark.parametrize("kind", ["uniform", "duplicates", "storm"])
+@pytest.mark.parametrize(
+    "r,l,d", [(1, 1, 3), (130, 301, 12), (257, 1001, 48), (300, 513, 192), (33, 777, 768),
+              (100, 601, 3072), (40, 300, 4128), (40, 300, 4160), (20, 257, 49152),
+              (70, 901, 128), (70, 901, 129),
+              (5000, 3001, 48)])
+def test_k11_argmin_matches_plain(cuda, kind, r, l, d):
+    rng = np.random.default_rng(r + l + d)
+    t = _k11_lib(rng, kind, l, d, cuda)
+    x = _u8(rng, (r, d), cuda)
+    x[0] = t[l // 2]
+    before = L2_ARGMIN.launches
+    got = distance._l2_argmin(x, t)
+    torch.cuda.synchronize()
+    assert L2_ARGMIN.launches == before + 1
+    want = distance._l2_argmin_ref(x, t)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_k11_argmin_extremes_and_wrap(cuda):
+    """dist^2 at its extremes: all-0 queries against all-255 rows at the
+    packed key's widest rows (128), at 4128 bytes and past 2^31 (D =
+    40000, the int32 wrap)."""
+    for d in (128, 4128, 40000):
+        x = torch.zeros((3, d), dtype=torch.uint8, device=cuda)
+        x[1] = 255
+        t = torch.full((300, d), 255, dtype=torch.uint8, device=cuda)
+        t[200, :5] = 0
+        got, want = distance._l2_argmin(x, t), distance._l2_argmin_ref(x, t)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert int(got[1][0]) == 200 and int(got[1][1]) == 0
+
+
+@pytest.mark.parametrize("cap", [1, 7, 16, 24, 32, 33, 128])
+@pytest.mark.parametrize("seg", [128, 256, 512, 1024])
+@pytest.mark.parametrize("kind", ["uniform", "storm"])
+@pytest.mark.parametrize("d", [12, 48, 192, 768, 3072])
+def test_k11_topcap_matches_plain(cuda, cap, seg, kind, d):
+    """K11's fused entry against `_l2_topcap_ref`, bit for bit: a padded
+    last segment (L = 3001), 70 query rows; caps above 32 rank the whole
+    segment (128: a 128-row segment kept whole)."""
+    rng = np.random.default_rng(cap * 7 + seg + d)
+    t = _k11_lib(rng, kind, 3001, d, cuda)
+    x = _u8(rng, (70, d), cuda)
+    x[0] = t[1500]
+    before = L2_TOPCAP.launches
+    got = distance.l2_topcap(x, t, cap, seg=seg)
+    torch.cuda.synchronize()
+    assert L2_TOPCAP.launches == before + 1
+    assert torch.equal(got, distance._l2_topcap_ref(x, t, cap, seg, 0, 3001))
+
+
+@pytest.mark.parametrize("col0,real_l", [(0, 700), (1000, 1200), (4096, 10**6), (128, 128)])
+def test_k11_topcap_col0_and_real_l(cuda, col0, real_l):
+    rng = np.random.default_rng(col0)
+    t = _k11_lib(rng, "duplicates", 900, 48, cuda)
+    x = _u8(rng, (100, 48), cuda)
+    for seg, cap in ((128, 8), (256, 16), (1024, 32), (128, 77), (256, 256)):
+        got = distance.l2_topcap(x, t, cap, seg=seg, col0=col0, real_l=real_l)
+        assert torch.equal(got, distance._l2_topcap_ref(x, t, cap, seg, col0, real_l))
+
+
+def test_k11_topcap_split_depth(cuda):
+    """Rows past 33024 bytes: the split depth and the keys' 2^31 bias,
+    with distances past 2^31 kept (bright rows against a zero query)."""
+    rng = np.random.default_rng(49152)
+    t = torch.from_numpy(rng.integers(215, 256, size=(300, 49152), dtype=np.uint8)).to(cuda)
+    x = _u8(rng, (40, 49152), cuda)
+    x[0] = 0
+    x[1] = t[7]
+    got = distance.l2_topcap(x, t, 8, seg=128)
+    torch.cuda.synchronize()
+    assert torch.equal(got, distance._l2_topcap_ref(x, t, 8, 128, 0, 300))
+    assert int(got[0, 0, 0] >> 32) > 0 and int(got[1, 0, 0] >> 32) == -(2**31)
+
+
+def test_k11_entries_refuse_a_plan_that_does_not_match(cuda):
+    import ctypes
+
+    x = torch.zeros((300, 64), dtype=torch.uint8, device=cuda)
+    n = torch.zeros(300, dtype=torch.int32, device=cuda)
+    keys = torch.full((300,), -1, dtype=torch.int64, device=cuda)
+    out = torch.empty((300, 3, 8), dtype=torch.int64, device=cuda)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(cuda).cuda_stream)
+    p = [ctypes.c_void_p(a.data_ptr()) for a in (x, x, n, n, keys)]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    dp, nqt, nsplit, tps = distance._k11_argmin_plan(300, 300, 64, sms)
+    for bad in ((300, 300, dp, nqt + 1, nsplit, tps, distance._K11_ARG_SMEM),
+                (300, 300, 48, nqt, nsplit, tps, distance._K11_ARG_SMEM),
+                (300, 300, dp, nqt, nsplit + 1, tps, distance._K11_ARG_SMEM),
+                (300, 300, dp, nqt, nsplit, tps, distance._K11_ARG_SMEM - 16)):
+        with pytest.raises(RuntimeError, match="l2_argmin kernel launch failed"):
+            L2_ARGMIN.launch(0, *p, *bad, stream)
+    p[4] = ctypes.c_void_p(out.data_ptr())
+    smem = distance._k11_topcap_smem(128)
+    nqt = -(-300 // 256)
+    for bad in ((128, 8, 0, 300, 0, nqt, nqt * 3, smem - 16),
+                (128, 129, 0, 300, 0, nqt, nqt * 3, smem),
+                (128, 8, 0, 300, 2**31, nqt, nqt * 3, smem),
+                (128, 8, 0, 301, 0, nqt, nqt * 3, smem),
+                (100, 8, 0, 300, 0, nqt, nqt * 3, smem)):
+        with pytest.raises(RuntimeError, match="l2_topcap kernel launch failed"):
+            L2_TOPCAP.launch(0, *p, 300, 300, 64, *bad, stream)
+    L2_TOPCAP.launch(0, *p, 300, 300, 64, 128, 8, 0, 300, 0, nqt, nqt * 3, smem, stream)
+    torch.cuda.synchronize()
+    assert torch.equal(out, distance._l2_topcap_ref(x, x, 8, 128, 0, 300))
+
+
+def test_k11_routes_equal_the_cpu(cuda, monkeypatch):
+    """`l2_argmin` and the hybrid (`l1_topk_hybrid`: K11's top-cap as the
+    prefilter's stage 1, whole segments for uncertified rows, K3's
+    rescore) on the card equal the CPU's results; with a cap too small for
+    runs of near rows, the fallback rows too."""
+    rng = np.random.default_rng(11)
+    lib = rng.integers(0, 256, size=(9000, 48), dtype=np.uint8)
+    blocks = rng.integers(0, 256, size=(300, 48), dtype=np.uint8)
+    before = (L2_ARGMIN.launches, L2_TOPCAP.launches)
+    got = distance.l2_argmin(blocks, lib, device=cuda)
+    want = distance.l2_argmin(blocks, lib, device="cpu")
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    got = distance.l1_topk_hybrid(blocks, lib, 4, device=cuda)
+    assert L2_ARGMIN.launches == before[0] + 1 and L2_TOPCAP.launches > before[1]
+    want = distance.l1_topk_hybrid(blocks, lib, 4, device="cpu")
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    near = np.clip(blocks[:20, None].astype(int) + rng.integers(-2, 3, (20, 30, 48)), 0, 255)
+    for i in range(20):
+        lib[128 * i : 128 * i + 30] = near[i]
+    monkeypatch.setattr(distance, "_k11_topcap_plan", lambda l, k: (128, 3))
+    x, t = torch.from_numpy(blocks), torch.from_numpy(lib)
+    got = distance._l2_prefilter(x.to(cuda), t.to(cuda), 8)
+    assert torch.equal(got.cpu(), distance._l2_prefilter(x, t, 8))
+
+
+@pytest.mark.parametrize("l,k_pre", [(20000, 1024), (4000, 1024), (1100, 1024), (300, 64)])
+def test_k11_prefilter_past_every_fast_plan(cuda, l, k_pre):
+    """k_pre too large a share of the library for a fast plan: 128-row
+    segments with a cap of the group minima (20000 rows), ranked whole
+    segments (4000, 300) or segments kept whole (1100), on K11 alone, equal
+    to the CPU's."""
+    rng = np.random.default_rng(l)
+    t = torch.from_numpy(rng.integers(0, 256, size=(l, 48), dtype=np.uint8))
+    x = torch.from_numpy(rng.integers(0, 256, size=(200, 48), dtype=np.uint8))
+    t[l // 2 :: 7] = t[0]
+    before = L2_TOPCAP.launches
+    got = distance._l2_prefilter(x.to(cuda), t.to(cuda), k_pre)
+    assert L2_TOPCAP.launches > before
+    assert torch.equal(got.cpu(), distance._l2_prefilter(x, t, k_pre))
 
 
 @pytest.mark.parametrize("h,w", [(1, 16), (7, 13), (24, 6144), (3, 100003)])

@@ -1,6 +1,7 @@
-"""The launch plans of K1, K3, K4, K9 and K10 (`ops/distance.py` `_k1_plan`,
-`_k3_plan`, `_k4_plan`, `_k9_plan`, `_k10_plan`): the Python side of the
-kernels, checked on the CPU.
+"""The launch plans of K1, K3, K4, K9, K10 and K11 (`ops/distance.py`
+`_k1_plan`, `_k3_plan`, `_k4_plan`, `_k9_plan`, `_k10_plan`,
+`_k11_argmin_plan`, `_k11_topcap_plan`): the Python side of the kernels,
+checked on the CPU.
 
 K1 takes the register path for rows of at most 16 words (D <= 64) and the
 staged path, on rows padded to 16-byte vectors, above; its library splits
@@ -424,3 +425,282 @@ def test_k10_entries_share_one_source_and_count_apart():
     assert L1_STRIPE.source == L1_TOPCAP.source and L1_STRIPE.source.name == "l1_topcap.cu"
     assert L1_STRIPE.library == L1_TOPCAP.library
     assert (L1_STRIPE.name, L1_TOPCAP.name) == ("l1_stripe", "l1_topcap")
+
+
+# K11 (`csrc/l2_score.cu`): u8 products on the tensor cores in s32 over
+# rows zero-padded to 32 bytes, sixteen warps of 64 sums a block; the
+# argmin's packed key for rows of at most 128 bytes, dist^2 and its column
+# above, and its ring of |t|^2 slots; the depth
+# split past 33024 bytes; the top-cap's items of 32768 scores and its
+# selection from group minima, or of the whole segment for caps above 32.
+# The models below follow the kernel's integer arithmetic.
+
+_H100_SMEM_BLOCK = 232448  # 227 KB, a block's shared memory at most
+
+
+@pytest.mark.parametrize(
+    "d,dp", [(1, 32), (3, 32), (12, 32), (32, 32), (33, 64), (48, 64), (75, 96), (3072, 3072),
+             (33024, 33024), (33025, 33056), (49152, 49152), (66051, 66080)]
+)
+def test_k11_pads_the_depth_to_32(d, dp):
+    assert P._k11_dp(d) == dp and P._k11_argmin_plan(5, 300, d, 132)[0] == dp
+
+
+def test_k11_split_depth_starts_past_33025():
+    # exact s32 dot products up to 33025 bytes; the first padded width past
+    # it splits, and its first half stays within 33025 bytes at every
+    # width up to the widest rows
+    assert 255**2 * 33025 < 2**31 <= 255**2 * P._K11_SPLIT_MIN_DP
+    assert P._k11_dp(33025) == P._K11_SPLIT_MIN_DP and P._k11_dp(33024) < P._K11_SPLIT_MIN_DP
+    assert 255**2 * P._K11_D_MAX < 2**32 <= 255**2 * (P._K11_D_MAX + 1)
+    for dp in range(P._K11_SPLIT_MIN_DP, P._k11_dp(P._K11_D_MAX) + 1, 32):
+        assert 32 * (dp // 32 // 2) <= 33025
+    assert P._k11_bias(33024) == 0 and P._k11_bias(P._K11_SPLIT_MIN_DP) == 2**31
+
+
+def _split_dot(x, t, dp):
+    """The kernel's accumulator over k-steps of 32 bytes: s32 sums, offset
+    by -2^31 at the split step; each partial sum must fit an int32."""
+    nk = dp // 32
+    half = nk // 2 if dp >= P._K11_SPLIT_MIN_DP else -1
+    xp = np.zeros(dp, np.int64)
+    tp = np.zeros(dp, np.int64)
+    xp[: len(x)], tp[: len(t)] = x, t
+    acc = 0
+    for kc in range(nk):
+        if kc == half:
+            acc -= 2**31
+        acc += int(xp[32 * kc : 32 * kc + 32] @ tp[32 * kc : 32 * kc + 32])
+        assert -(2**31) <= acc < 2**31
+    return acc
+
+
+@pytest.mark.parametrize("d", [48, 3072, 33025, 33026, 49152, 66051])
+@pytest.mark.parametrize("xv,tv", [(0, 255), (255, 255), (255, 0), (128, 255)])
+def test_k11_dist2_from_the_split_sums_is_exact(d, xv, tv):
+    x = np.full(d, xv, np.int64)
+    t = np.full(d, tv, np.int64)
+    t[: d // 3] = 255 - tv  # uneven halves
+    acc = _split_dot(x, t, P._k11_dp(d))
+    xn, tn = int(x @ x), int(t @ t)
+    # u32 arithmetic of the epilogue: |x|^2 + |t|^2 - 2 acc modulo 2^32
+    dist = (xn % 2**32 + tn % 2**32 - 2 * acc) % 2**32
+    assert dist == int(((x - t) ** 2).sum()) < 2**32
+
+
+def test_k11_packed_key_width():
+    # v = 8 (|t|^2 - 2 x.t) + lcol fits a signed int below INT_MAX (INT_MAX
+    # marks padding columns) up to 4128 padded bytes, not at 4160; the
+    # argmin packs only up to the faster width
+    assert 8 * 255**2 * 4128 + 7 < 2**31 - 1 <= 8 * 255**2 * 4160 + 7
+    assert P._K11_PACKED_MAX_DP <= 4128
+    # a thread's columns of a 256-row tile (2 x 8 warps of 64 x 32): 4 n8
+    # tiles x 2 = 8 = 3 bits; modes 2 to 5 take the packed key, modes 8 up
+    # (192 bytes and more) the (dist^2, col) compare
+    bm, bn = P._K11_ARG_TILE
+    warps_n = P._K11_WARPS // (bm // 64)
+    assert bn // (8 * warps_n) * 2 == 8
+    assert P._k11_dp(75) <= P._K11_PACKED_MAX_DP < P._k11_dp(192)
+
+
+def test_k11_packed_topcap_key_width():
+    # the top-cap's u32 key (dist^2 << 10) | position below 64 padded
+    # bytes: every real key sits below the padding keys (2^22 - 1) << 10 |
+    # position, which are distinct; 10 bits hold a 1024-row segment
+    dp = P._K11_PACKED_TOP_MAX_DP
+    assert P._k11_dp(48) <= dp < P._k11_dp(75)
+    assert (255**2 * dp << 10) + 1023 < 0xFFFFFC00 and max(P._K11_SEGS) == 1 << 10
+
+
+def _argmin_model(x, t, xn, tn):
+    """K11's packed argmin on one query row, lane by lane: each (warp
+    column, quad lane) sees 8 columns of a 256-row tile; v = colterm -
+    16 dot as an int32, its min, the (v | 7) fold across tiles, the key
+    (dist^2 << 32) | col and the min over the lanes."""
+    l = len(t)
+    dots = t.astype(np.int64) @ x.astype(np.int64)
+    keys = []
+    for wn in range(8):
+        for tq in range(4):
+            best, where = 2**31 - 1, -1
+            for tl in range(-(-l // 256)):
+                m = 2**31 - 1
+                for nt in range(4):
+                    for c in range(2):
+                        col = tl * 256 + (wn * 4 + nt) * 8 + 2 * tq + c
+                        lcol = 2 * nt + c
+                        if col < l:
+                            v = int(tn[col]) * 8 + lcol - 16 * int(dots[col])
+                            assert -(2**31) < v < 2**31 - 1  # no wrap in int32
+                        else:
+                            v = 2**31 - 1
+                        m = min(m, v)
+                if (m | 7) < best:
+                    best, where = m, tl
+            if where >= 0:
+                lc = best & 7
+                dist = (best >> 3) + int(xn)
+                col = where * 256 + (wn * 4 + (lc >> 1)) * 8 + 2 * tq + (lc & 1)
+                keys.append((dist << 32) | col)
+    return min(keys)
+
+
+@pytest.mark.parametrize("d,l,kind", [(12, 700, "uniform"), (48, 1000, "duplicates"),
+                                      (128, 300, "extremes"), (48, 513, "storm")])
+def test_k11_packed_argmin_model_is_the_lowest_least_row(d, l, kind):
+    rng = np.random.default_rng(d + l)
+    t = rng.integers(0, 256, size=(l, d), dtype=np.int64)
+    if kind == "duplicates":
+        t[l // 2 :] = t[: l - l // 2]
+    elif kind == "storm":
+        t[:] = t[0]
+    elif kind == "extremes":
+        t[::2] = 255
+        t[1::2] = 0
+    xs = [rng.integers(0, 256, size=d), t[l // 2], np.zeros(d, np.int64), np.full(d, 255)]
+    tn = (t * t).sum(1)
+    for x in xs:
+        d2 = (x * x).sum() + tn - 2 * t @ x
+        want = int(np.lexsort((np.arange(l), d2))[0])
+        key = _argmin_model(x, t, (x * x).sum(), tn)
+        assert key & 0xFFFFFFFF == want and key >> 32 == d2[want]
+
+
+def _tn_slots_safe(stages: int, slots: int, nk: int, ntile: int = 12) -> bool:
+    """The argmin's schedule, step by step: step s computes k-slice s % nk
+    of tile s // nk after a barrier, then issues step s + stages - 1's
+    loads, whose first k-slice of a tile writes that tile's |t|^2 row into
+    slot tile % slots; the epilogue at a tile's last k-slice reads its slot.
+    Safe when no slot is written while its tile's epilogue is still to
+    come, nor before it."""
+    written = {}  # slot -> the tile whose row it holds
+    for s in range(ntile * nk):
+        nx = s + stages - 1
+        if s == 0:
+            for w in range(min(stages - 1, ntile * nk)):
+                if w % nk == 0:
+                    written[(w // nk) % slots] = w // nk
+        if nx < ntile * nk and nx % nk == 0:
+            tile = nx // nk
+            old = written.get(tile % slots)
+            if old is not None and old >= s // nk and old != tile:
+                return False  # overwrites a tile whose epilogue is pending
+            written[tile % slots] = tile
+        if s % nk == nk - 1 and written.get((s // nk) % slots) != s // nk:
+            return False
+    return True
+
+
+@pytest.mark.parametrize("nk", [1, 2, 3, 96, 1033])
+def test_k11_argmin_tn_slots_outlast_the_ring(nk):
+    # the kernel's ring against its four |t|^2 slots at every depth: one
+    # k-step a tile (32-byte rows) prefetches stages - 1 tiles ahead
+    assert _tn_slots_safe(P._K11_STAGES, P._K11_TN_SLOTS, nk)
+    assert P._K11_STAGES - 1 < P._K11_TN_SLOTS
+    # the schedule that overwrote a slot: 8 stages at 64-byte rows (mode 4)
+    assert not _tn_slots_safe(8, P._K11_TN_SLOTS, 2)
+    assert not _tn_slots_safe(P._K11_TN_SLOTS + 1, P._K11_TN_SLOTS, 1)
+
+
+def _select_model(v, cap, seg):
+    """K11's top-cap selection of one row of a segment: lane l's group is
+    positions 128 j + 4 l + e; the cap least group minima (value,
+    position) by their ranks, the cap-th of them tau (a cap above 32: every
+    group, tau above every key); the chosen groups' positions at or below
+    tau, each placed by its rank."""
+    groups = [[128 * j + 4 * lane + e for j in range(seg // 128) for e in range(4)]
+              for lane in range(32)]
+    mins = [min((int(v[p]), p) for p in g) for g in groups]
+    chosen = sorted(range(32), key=lambda lane: mins[lane])[:cap]
+    tau = max(mins[lane] for lane in chosen) if cap <= 32 else (2**64, 0)
+    cand = [(int(v[p]), p) for lane in sorted(chosen) for p in groups[lane]
+            if (int(v[p]), p) <= tau]
+    assert len(cand) >= cap
+    return sorted(cand)[:cap]
+
+
+@pytest.mark.parametrize("seg", P._K11_SEGS)
+@pytest.mark.parametrize("cap", [1, 2, 7, 16, 24, 32, 33, 64, 128])
+def test_k11_selection_model_keeps_the_least_keys(seg, cap):
+    rng = np.random.default_rng(seg + cap)
+    pad = 2**32 - 1
+    for hi, nvalid in [(2**22, seg), (5, seg), (1, seg), (2**32 - 2, seg), (1000, seg - 77),
+                       (3, 0), (2**20, 1)]:
+        v = rng.integers(0, hi, seg).astype(np.int64)
+        v[nvalid:] = pad
+        want = sorted((int(v[p]), p) for p in range(seg))[:cap]
+        assert _select_model(v, cap, seg) == want
+
+
+def test_k11_shared_memory_fits_a_block():
+    # the top-cap: the ring (three stages of (bm + seg) rows x 48 bytes)
+    # or, over it, the u32 [bm, seg + 8] dist^2 tile; then |x|^2, |t|^2
+    # and sixteen warps' u16 candidate lists
+    assert {s: P._k11_topcap_smem(s) for s in P._K11_SEGS} == {
+        1024: 3 * 1056 * 48 + 32 * 4 + 1024 * 4 + 16 * 1024 * 2,
+        512: 64 * 520 * 4 + 64 * 4 + 512 * 4 + 16 * 512 * 2,
+        256: 128 * 264 * 4 + 128 * 4 + 256 * 4 + 16 * 256 * 2,
+        128: 256 * 136 * 4 + 256 * 4 + 128 * 4 + 16 * 128 * 2,
+    }
+    assert P._K11_ARG_SMEM == 3 * 384 * 48 + P._K11_TN_SLOTS * 256 * 4 + 128 * 4 == 59904
+    for smem in [P._K11_ARG_SMEM, *map(P._k11_topcap_smem, P._K11_SEGS)]:
+        assert smem <= _H100_SMEM_BLOCK
+
+
+@pytest.mark.parametrize("l,k_pre", [(l, k) for l in (300, 1000, 4000, 65534, 200000, 10**6)
+                                     for k in (1, 16, 64, 128, 512, 1024, 2048) if k <= l])
+def test_k11_topcap_plan_survivors_within_a_16th(l, k_pre):
+    seg, cap = P._k11_topcap_plan(l, k_pre)
+    nseg = -(-l // seg)
+    assert seg in P._K11_SEGS and 1 <= cap <= seg and nseg * cap >= k_pre
+
+    def fast(s):
+        c = P._k11_cap(k_pre, l, s)
+        return c <= min(P._K11_GROUP_CAP, s // 16) and -(-l // s) * c >= k_pre
+
+    if not any(map(fast, P._K11_SEGS)):
+        # k_pre too large a share of L: 128-row segments, the cap raised
+        # until the survivors hold k_pre, at most the whole segment
+        assert seg == 128 and cap == min(128, max(P._k11_cap(k_pre, l, 128), -(-k_pre // nseg)))
+        return
+    assert cap <= min(P._K11_GROUP_CAP, seg // 16)
+    assert nseg * cap * 16 <= nseg * seg  # survivors <= 1/16 of the positions
+    assert not any(fast(s) for s in P._K11_SEGS if s > seg)  # the longest such segment
+
+
+def test_k11_main_path_plans():
+    # phase H's mode 4 hybrid: k_pre 64 of 200000 rows, 196 segments of
+    # 1024 keep 7 (1372 survivors a row, 1/146 of the positions)
+    assert P._k11_topcap_plan(200000, 64) == (1024, 7)
+    # the flagship hybrid no-repeat scorer: k_pre 1024 of 65534 rows
+    assert P._k11_topcap_plan(65534, 1024) == (512, 24)
+    # its scorer on a 20000-row library: no segment within the 16th, so
+    # 128-row segments with the group minima's cap; at 4000 rows caps
+    # above 32 rank the whole segment; at 1100 every segment is kept whole
+    assert P._k11_topcap_plan(20000, 1024) == (128, 21)
+    assert P._k11_topcap_plan(4000, 1024) == (128, 60)
+    assert P._k11_topcap_plan(1100, 1024) == (128, 128)
+    # the argmin at phase H's mode 4 shape: 2048 query tiles, no split
+    assert P._k11_argmin_plan(262144, 200000, 48, 132) == (64, 2048, 1, 782)
+
+
+@pytest.mark.parametrize("rows,l,sms", [(1, 1, 132), (33, 700, 132), (130, 5000, 132),
+                                        (4096, 200000, 132), (262144, 200000, 132),
+                                        (100, 10**6, 8)])
+def test_k11_argmin_splits_cover_every_library_tile_once(rows, l, sms):
+    dp, nqt, nsplit, tps = P._k11_argmin_plan(rows, l, 48, sms)
+    ntl = -(-l // P._K11_ARG_TILE[1])
+    assert nqt == -(-rows // P._K11_ARG_TILE[0])
+    cover = [t for s in range(nsplit) for t in range(s * tps, min((s + 1) * tps, ntl))]
+    assert cover == list(range(ntl))
+    assert (nsplit - 1) * tps < ntl  # no split is empty
+    assert nqt * nsplit >= min(2 * sms, nqt * ntl)  # two blocks an SM where the tiles allow
+
+
+def test_k11_entries_share_one_source_and_count_apart():
+    from emosaic_tpu_torch.ops._kernels import KERNELS, L2_ARGMIN, L2_TOPCAP
+
+    assert L2_ARGMIN.source == L2_TOPCAP.source and L2_ARGMIN.source.name == "l2_score.cu"
+    assert L2_ARGMIN.library == L2_TOPCAP.library
+    assert (L2_ARGMIN.name, L2_TOPCAP.name) == ("l2_argmin", "l2_topcap")
+    assert KERNELS[-2:] == (L2_ARGMIN, L2_TOPCAP)
