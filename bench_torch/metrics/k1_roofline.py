@@ -1,0 +1,7 @@
+"""K1's share of its roofline (`kernels/k1.py`), in %."""
+
+from bench_torch.roofline import share
+
+
+def read(run):
+    return share(run, "k1")

@@ -1,0 +1,7 @@
+"""K9's share of its roofline (`kernels/k9.py`), in %."""
+
+from bench_torch.roofline import share
+
+
+def read(run):
+    return share(run, "k9")
