@@ -1771,14 +1771,16 @@ def phase_n(torch, gen, dev, card, t=32767, side=4096, t2=16384) -> dict:
     wall = time.perf_counter() - t0
     launches = {kern.name: kern.launches for kern in KERNELS}
     info, sc = res.info, res.info["scoring"]
+    sp = {name: e["s"] for name, e in info["spans"].items()}
     for ln in lines:
         log(f"N {ln.strip()}")
     log(f"N render_nto1_no_repeat: {wall:.3f} s; scoring {info['scoring_s']:.3f} s "
-        f"(prepare {sc['prepare_s']:.3f}, coarse {sc['coarse_s']:.3f}, rescore "
-        f"{sc['rescore_s']:.3f}, fallback {sc['fallback_s']:.3f} for {sc['fallback']} "
-        f"rows, audit {sc['audit_s']:.3f}), assignment {info['assign_s']:.3f} s "
-        f"({info['engine']}, {info['refill_events']} device refill events), stats + "
-        f"compose {info['finish_s']:.3f} s [{card}]")
+        f"(prepare {sp['scoring.prepare']:.3f}, coarse {sp['scoring.coarse']:.3f}, rescore "
+        f"{sp['scoring.rescore']:.3f}, fallback {sp['scoring.fallback']:.3f} for "
+        f"{sc['fallback']} rows, audit {sp['scoring.audit']:.3f}), assignment "
+        f"{info['assign_s']:.3f} s ({info['engine']}, {info['refill_events']} device refill "
+        f"events), stats + compose {sp['render.stats'] + sp['render.compose']:.3f} s "
+        f"[{card}]")
     log(f"N launches in the no-repeat run: {launches}")
     check(info["scorer"] == "adaptive-exact", f"scorer {info['scorer']}")
     check(sc["route"] == "adaptive", f"adaptive route {sc['route']}")

@@ -20,7 +20,6 @@
 #include <algorithm>
 #include <chrono>
 #include <cstdint>
-#include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <queue>
@@ -165,13 +164,9 @@ struct Ctx {
                              // pass the same used-check at pop time)
   int64_t cb_max_batch = 4096;
   bool aborted = false;      // the callback asked to stop (negative code)
-  // EMOSAIC_NATIVE_STATS=1 diagnostics
+  // the host masked scans and their seconds (reported through `stats`)
   int64_t n_refills = 0;
-  int64_t n_peeks = 0;
-  int64_t n_cb_calls = 0;
-  int64_t n_cb_blocks = 0;
   double refill_secs = 0.0;
-  double cb_secs = 0.0;
   // lazy per-row library sums for the refill's coarse bound
   std::vector<int64_t> row_sums;
 
@@ -200,17 +195,11 @@ struct Ctx {
     const int64_t m = (int64_t)ids.size();
     std::vector<int32_t> od((size_t)(m * cb_k));
     std::vector<int32_t> orr((size_t)(m * cb_k));
-    auto t0 = std::chrono::steady_clock::now();
     int32_t rc = cb(cb_user, ids.data(), m, used.data(), od.data(), orr.data());
-    cb_secs += std::chrono::duration<double>(
-                   std::chrono::steady_clock::now() - t0)
-                   .count();
     if (rc != 0) {
       if (rc < 0) aborted = true;
       return false;
     }
-    ++n_cb_calls;
-    n_cb_blocks += m;
     for (int64_t i = 0; i < m; ++i) {
       Stream& t = streams[ids[i]];
       size_t added = 0;
@@ -235,7 +224,6 @@ struct Ctx {
   // monotone per block: callers that cached an older distance requeue at
   // the returned one (run_greedy_global).
   bool peek(int64_t b, int32_t* dist, int32_t* row) {
-    ++n_peeks;
     Stream& s = streams[b];
     for (;;) {
       if (s.cursor < K) {
@@ -309,9 +297,10 @@ struct Ctx {
 
 // Shared body of the global-greedy exports: best-match-first priority
 // queue with mirror-pair exclusion (rendering.rs:346-392), tie-broken by
-// block index like the Python engine.
+// block index like the Python engine. `stats`, when not null, receives
+// {host masked scans, their seconds}.
 int run_greedy_global(Ctx& ctx, int64_t B, int64_t num_tiles,
-                      int32_t* out_row, int32_t* out_dist) {
+                      int32_t* out_row, int32_t* out_dist, double* stats) {
   ctx.used.assign(ctx.L, 0);
   ctx.n_unused = ctx.L;
   ctx.streams.assign(B, Stream{});
@@ -352,14 +341,9 @@ int run_greedy_global(Ctx& ctx, int64_t B, int64_t num_tiles,
     ctx.streams[b].assigned = true;
     if (ctx.n_unused == 0) break;  // nothing left to assign: skip the drain
   }
-  if (std::getenv("EMOSAIC_NATIVE_STATS")) {
-    std::fprintf(stderr,
-                 "[native] greedy_global: peeks=%lld refills=%lld "
-                 "refill_time=%.2fs cb_calls=%lld cb_blocks=%lld "
-                 "cb_time=%.2fs\n",
-                 (long long)ctx.n_peeks, (long long)ctx.n_refills,
-                 ctx.refill_secs, (long long)ctx.n_cb_calls,
-                 (long long)ctx.n_cb_blocks, ctx.cb_secs);
+  if (stats != nullptr) {
+    stats[0] = (double)ctx.n_refills;
+    stats[1] = ctx.refill_secs;
   }
   return 0;
 }
@@ -403,14 +387,15 @@ int emosaic_greedy_sequence(const int32_t* order, const int32_t* cand_d,
 
 // Global greedy no-repeat (reference --no-repeat): best-match-first
 // priority queue, mirror-pair exclusion. Ties by block index (matches the
-// Python engine). Returns 0 on success.
+// Python engine). `stats` is null or double[2] (see run_greedy_global).
+// Returns 0 on success.
 int emosaic_greedy_global(const int32_t* cand_d, const int32_t* cand_r,
                           int64_t B, int64_t K, const uint8_t* blocks,
                           const uint8_t* lib, int64_t L, int64_t D,
                           int64_t num_tiles, int32_t* out_row,
-                          int32_t* out_dist) {
+                          int32_t* out_dist, double* stats) {
   Ctx ctx{cand_d, cand_r, K, blocks, lib, L, D};
-  return run_greedy_global(ctx, B, num_tiles, out_row, out_dist);
+  return run_greedy_global(ctx, B, num_tiles, out_row, out_dist, stats);
 }
 
 // Global greedy with a batched device-refill callback: identical output
@@ -425,7 +410,7 @@ int emosaic_greedy_global_cb(const int32_t* cand_d, const int32_t* cand_r,
                              int64_t num_tiles, emosaic_refill_cb cb,
                              void* user, int64_t cb_k, int64_t cb_margin,
                              int64_t cb_max_batch, int32_t* out_row,
-                             int32_t* out_dist) {
+                             int32_t* out_dist, double* stats) {
   Ctx ctx{cand_d, cand_r, K, blocks, lib, L, D};
   ctx.cb = cb;
   ctx.cb_user = user;
@@ -433,7 +418,7 @@ int emosaic_greedy_global_cb(const int32_t* cand_d, const int32_t* cand_r,
   ctx.cb_margin = cb_margin;
   ctx.cb_max_batch = cb_max_batch;
   if (cb_k <= 0 || cb_max_batch <= 0) return 1;
-  return run_greedy_global(ctx, B, num_tiles, out_row, out_dist);
+  return run_greedy_global(ctx, B, num_tiles, out_row, out_dist, stats);
 }
 
 // White-border trim rectangle (reference utils.rs:108-175 semantics; see

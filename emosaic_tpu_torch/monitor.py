@@ -1,13 +1,98 @@
 """Runtime observability: RSS memory monitor + wall-time stats
-(reference: src/main.rs:157-269) and a throughput progress printer
-(the reference's indicatif bars, main.rs:751-757, rendering.rs:60-66).
+(reference: src/main.rs:157-269), a throughput progress printer
+(the reference's indicatif bars, main.rs:751-757, rendering.rs:60-66),
+and the spans that time a render's stages into its record.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import sys
 import threading
 import time
+
+#: the record (a render's `RenderOutcome.info`) that spans add to; set by
+#: `record` for the render in this context
+_RECORD: contextvars.ContextVar[dict | None] = contextvars.ContextVar(
+    "emosaic_record", default=None
+)
+
+
+class _Open(threading.local):
+    """Each thread's open spans, innermost last."""
+
+    def __init__(self):
+        self.stack: list[span] = []
+
+
+_OPEN = _Open()
+
+
+class span:
+    """`with span("render.match"): ...` times one stage of a render.
+
+    On exit it adds its wall seconds `s`, its self seconds `self_s` (`s`
+    less the time its child spans cover) and a count `n` to
+    `info["spans"][name]` of the record `record` opened in this context; with
+    no record open it adds nothing. `s` is readable after exit either way.
+    While a `torch.profiler` is recording, the span is also a range named
+    `emosaic:<name>` on the profiler's clock, nested in its parent span's.
+    A span measures host time and never synchronises the device: a stage's
+    device time is the trace's.
+    """
+
+    __slots__ = ("name", "s", "_t0", "_child", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.s = 0.0
+
+    def __enter__(self) -> "span":
+        torch = sys.modules.get("torch")
+        self._range = None
+        if torch is not None and torch.autograd._profiler_enabled():
+            # a plain op range, not `record_function`'s user annotation:
+            # the profiler copies user annotations onto the device's
+            # timeline, where readers of device intervals would count them
+            # as device work
+            self._range = torch._C._profiler._RecordFunctionFast(f"emosaic:{self.name}")
+            self._range.__enter__()
+        _OPEN.stack.append(self)
+        self._child = 0.0
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.s = time.perf_counter() - self._t0
+        stack = _OPEN.stack
+        stack.pop()
+        if stack:
+            stack[-1]._child += self.s
+        rec = _RECORD.get()
+        if rec is not None:
+            spans = rec.setdefault("spans", {})
+            e = spans.get(self.name)
+            if e is None:
+                e = spans[self.name] = {"s": 0.0, "self_s": 0.0, "n": 0}
+            e["s"] += self.s
+            e["self_s"] += self.s - self._child
+            e["n"] += 1
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        return False
+
+
+@contextlib.contextmanager
+def record(info: dict):
+    """Open `info` as the record of one render: the spans inside this
+    context add to `info["spans"]`, under the root span `render`."""
+    token = _RECORD.set(info)
+    try:
+        with span("render"):
+            yield info
+    finally:
+        _RECORD.reset(token)
 
 
 def get_current_rss_kb() -> int | None:
@@ -102,22 +187,23 @@ def print_runtime_stats(start_time: float, monitor: MemoryMonitor, log=None):
 class PhaseTimer:
     """Per-phase wall timers printed at exit — the TPU-side analogue of the
     reference's per-stage progress throughput (SURVEY.md section 5
-    'tracing/profiling')."""
+    'tracing/profiling'). Each phase is a `span`, so `--profile` traces
+    show it."""
 
     def __init__(self, log=None):
         self.log = log or (lambda *a: print(*a, file=sys.stderr))
         self.phases: list[tuple[str, float]] = []
 
-    class _Span:
-        def __init__(self, timer, name):
-            self.timer, self.name = timer, name
+    class _Span(span):
+        __slots__ = ("timer",)
 
-        def __enter__(self):
-            self.t0 = time.time()
-            return self
+        def __init__(self, timer, name):
+            super().__init__(name)
+            self.timer = timer
 
         def __exit__(self, *exc):
-            self.timer.phases.append((self.name, time.time() - self.t0))
+            super().__exit__(*exc)
+            self.timer.phases.append((self.name, self.s))
             return False
 
     def phase(self, name: str) -> "_Span":

@@ -105,13 +105,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i32p, i32p, i32p, i64, i64, u8p, u8p, i64, i64, i32p, i32p
     ]
     lib.emosaic_greedy_sequence.restype = ctypes.c_int
+    # the stats out-array: double[2] or None
+    f64p = ctypes.POINTER(ctypes.c_double)
     lib.emosaic_greedy_global.argtypes = [
-        i32p, i32p, i64, i64, u8p, u8p, i64, i64, i64, i32p, i32p
+        i32p, i32p, i64, i64, u8p, u8p, i64, i64, i64, i32p, i32p, f64p
     ]
     lib.emosaic_greedy_global.restype = ctypes.c_int
     lib.emosaic_greedy_global_cb.argtypes = [
         i32p, i32p, i64, i64, u8p, u8p, i64, i64, i64,
-        _REFILL_CFUNC, ctypes.c_void_p, i64, i64, i64, i32p, i32p
+        _REFILL_CFUNC, ctypes.c_void_p, i64, i64, i64, i32p, i32p, f64p
     ]
     lib.emosaic_greedy_global_cb.restype = ctypes.c_int
     lib.emosaic_trim_bounds.argtypes = [u8p, i64, i64, i32p]
@@ -158,6 +160,7 @@ def greedy_global(
     cb_k: int | None = None,
     cb_margin: int = 8,
     cb_max_batch: int = 4096,
+    stats: dict | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Native global-greedy no-repeat assignment (see render/greedy.py).
 
@@ -168,7 +171,9 @@ def greedy_global(
     ops/distance.DeviceRefiller). Output is bit-identical with or without
     the callback. An exception with `expected_fallback` set sends that
     event to the host scan; any other exception stops the engine and is
-    raised here.
+    raised here. `stats`, when given, is filled with the engine's host
+    masked scans (`refill_host_events`) and their seconds
+    (`refill_host_s`).
     """
     nl = load()
     b, k = cand_d.shape
@@ -178,10 +183,11 @@ def greedy_global(
     lib = _c(lib, np.uint8)
     out_row = np.empty(b, dtype=np.int32)
     out_dist = np.empty(b, dtype=np.int32)
+    out_stats = (ctypes.c_double * 2)() if stats is not None else None
     if refill_cb is None:
         rc = nl.emosaic_greedy_global(
             cand_d, cand_r, b, k, blocks, lib,
-            lib.shape[0], lib.shape[1], num_tiles, out_row, out_dist,
+            lib.shape[0], lib.shape[1], num_tiles, out_row, out_dist, out_stats,
         )
     else:
         L = lib.shape[0]
@@ -210,12 +216,14 @@ def greedy_global(
             cand_d, cand_r, b, k, blocks, lib,
             lib.shape[0], lib.shape[1], num_tiles,
             c_cb, None, cb_k, cb_margin, cb_max_batch,
-            out_row, out_dist,
+            out_row, out_dist, out_stats,
         )
         if failed:
             raise failed[0]
     if rc != 0:
         raise RuntimeError(f"emosaic_greedy_global rc={rc}")
+    if stats is not None:
+        stats.update(refill_host_events=int(out_stats[0]), refill_host_s=out_stats[1])
     return out_row, out_dist
 
 

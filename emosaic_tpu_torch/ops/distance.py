@@ -70,11 +70,11 @@ import ctypes
 import math
 import os
 import sys
-import time
 
 import numpy as np
 import torch
 
+from emosaic_tpu_torch.monitor import span
 from emosaic_tpu_torch.ops._kernels import (
     COARSE_TOPCAP,
     L1_ARGMIN,
@@ -1492,9 +1492,9 @@ def l1_topk_adaptive(
 
     `prepared` is an `_ad_prepare` handle for THIS `lib` (the streamed
     scorer's prefetch); results are bit-identical with or without it.
-    `stats`, when given, is filled with the route taken, the counts of
-    certified and fallback rows, and per-step seconds (the steps then end
-    in a synchronize).
+    `stats`, when given, is filled with the route taken and the counts of
+    certified and fallback rows, and the steps' spans (`scoring.prepare`,
+    `.coarse`, `.rescore`, `.fallback`, `.audit`) then end in a synchronize.
     """
     dev = _device_of(blocks, device)
     blocks, lib = _as_u8(blocks), _as_u8(lib)
@@ -1513,31 +1513,28 @@ def l1_topk_adaptive(
     if not eligible:
         st["route"] = "twolevel (ineligible shape)"
         return l1_topk_twolevel(blocks, lib, k, device=dev)
-    t0 = time.perf_counter()
-    if prepared is not None:
-        lib_pad = _check_ad_prepared(prepared, l, lp, d)
-    else:
-        lib_pad = _pad_lib(lib, lp, dev)
-    lib_dev = lib_pad[:l]
-    x = blocks.to(dev)
-    bc = min(_STRIPE_BC, max(8, 1 << (b - 1).bit_length()))
-    b_slice = _ad_b_slice(nseg, cap, bc)
-    coarse_lib = _ad_coarse_lib(lib_pad, d, g, chan, l)
-    if stats is not None:
-        _sync(dev)
-    timed = {"prepare_s": time.perf_counter() - t0, "coarse_s": 0.0, "rescore_s": 0.0}
+    with span("scoring.prepare"):
+        if prepared is not None:
+            lib_pad = _check_ad_prepared(prepared, l, lp, d)
+        else:
+            lib_pad = _pad_lib(lib, lp, dev)
+        lib_dev = lib_pad[:l]
+        x = blocks.to(dev)
+        bc = min(_STRIPE_BC, max(8, 1 << (b - 1).bit_length()))
+        b_slice = _ad_b_slice(nseg, cap, bc)
+        coarse_lib = _ad_coarse_lib(lib_pad, d, g, chan, l)
+        if stats is not None:
+            _sync(dev)
 
     def run(xs):
-        t1 = time.perf_counter()
-        keys, s_min = _ad_coarse(xs, coarse_lib, d, g, chan, cap)
-        if stats is not None:
-            _sync(dev)
-        t2 = time.perf_counter()
-        out = _ad_rescore(xs, keys, s_min, lib_pad, m=m, k=kk, real_l=l)
-        if stats is not None:
-            _sync(dev)
-        timed["coarse_s"] += t2 - t1
-        timed["rescore_s"] += time.perf_counter() - t2
+        with span("scoring.coarse"):
+            keys, s_min = _ad_coarse(xs, coarse_lib, d, g, chan, cap)
+            if stats is not None:
+                _sync(dev)
+        with span("scoring.rescore"):
+            out = _ad_rescore(xs, keys, s_min, lib_pad, m=m, k=kk, real_l=l)
+            if stats is not None:
+                _sync(dev)
         return out
 
     # adaptivity gate: one sample chunk through the whole pipeline; data
@@ -1548,21 +1545,15 @@ def l1_topk_adaptive(
             st["route"] = "twolevel (sample gate)"
             return l1_topk_twolevel(x, lib_dev, k, device=dev)
     out_d, out_r, ok_all = _run_block_slices(x, b_slice, kk, run)
-    st.update(timed, certified=int(ok_all.sum()))
-    t1 = time.perf_counter()
+    st.update(certified=int(ok_all.sum()))
     bad = np.flatnonzero(~ok_all)
-    out_d, out_r = _stripe_fallback(out_d, out_r, bad, x, lib_dev, kk, device=dev)
-    t2 = time.perf_counter()
-    out_d, out_r = _ad_audit(
-        out_d, out_r, x, lib_dev, l, d, kk, label="l1_topk_adaptive"
-    )
-    st.update(
-        fallback=int(bad.size),
-        fallback_s=t2 - t1,
-        audit=_audit_would_run(l, b, kk),
-        audit_s=time.perf_counter() - t2,
-        total_s=time.perf_counter() - t0,
-    )
+    with span("scoring.fallback"):
+        out_d, out_r = _stripe_fallback(out_d, out_r, bad, x, lib_dev, kk, device=dev)
+    with span("scoring.audit"):
+        out_d, out_r = _ad_audit(
+            out_d, out_r, x, lib_dev, l, d, kk, label="l1_topk_adaptive"
+        )
+    st.update(fallback=int(bad.size), audit=_audit_would_run(l, b, kk))
     return _pad_topk(out_d, out_r, b, k, kk)
 
 
@@ -2164,7 +2155,11 @@ class DeviceRefiller:
         self.max_batch = 1 << (min(self.b, 4096) - 1).bit_length()
         self._blocks_dev = None
         self._lib_dev = None
+        #: device top-k calls, the blocks they covered and the unused rows
+        #: they scored (each call's stripe is its blocks x those rows)
         self.n_calls = 0
+        self.n_blocks = 0
+        self.n_rows = 0
         if defer_events is None:
             defer_events = int(
                 os.environ.get("EMOSAIC_DEVICE_REFILL_DEFER", _REFILL_DEFER_EVENTS)
@@ -2188,31 +2183,36 @@ class DeviceRefiller:
             self._upload()
 
     def __call__(self, ids: np.ndarray, used: np.ndarray):
-        m = len(ids)
-        out_d = np.full((m, self.k), I32_MAX, np.int32)
-        out_r = np.zeros((m, self.k), np.int32)
-        unused = np.flatnonzero(np.asarray(used) == 0)
-        if unused.size == 0:
-            return out_d, out_r
-        if self._oversized():
-            # the upload would overflow the card: keep EVERY event on the
-            # engine's exact host scan
-            raise _DeferRefill(-1)
-        if self._blocks_dev is None and self.n_deferred < self.defer_events:
+        used = np.asarray(used)
+        cold = self._blocks_dev is None and self.n_deferred < self.defer_events
+        if (self._oversized() or cold) and not used.all():
+            if self._oversized():
+                # the upload would overflow the card: keep EVERY event on
+                # the engine's exact host scan
+                raise _DeferRefill(-1)
             # cold: absorb early events on the host scan until the upload
             # is worth paying
             self.n_deferred += 1
             raise _DeferRefill(self.n_deferred)
-        if self._blocks_dev is None:
-            self._upload()
-        kk = min(self.k, unused.size)
-        unused_dev = torch.from_numpy(unused).to(self.device)
-        sub = self._lib_dev.index_select(0, unused_dev)
-        ids = torch.from_numpy(np.asarray(ids, dtype=np.int64))
-        for lo in range(0, m, self.max_batch):  # normally a single chunk
-            chunk = ids[lo : lo + self.max_batch].to(self.device)
-            dd, rr = _refill_topk(self._blocks_dev, chunk, sub, unused_dev, kk)
-            self.n_calls += 1
-            out_d[lo : lo + self.max_batch, :kk] = dd
-            out_r[lo : lo + self.max_batch, :kk] = rr
+        with span("norepeat.refill"):
+            m = len(ids)
+            out_d = np.full((m, self.k), I32_MAX, np.int32)
+            out_r = np.zeros((m, self.k), np.int32)
+            unused = np.flatnonzero(used == 0)
+            if unused.size == 0:
+                return out_d, out_r
+            if self._blocks_dev is None:
+                self._upload()
+            kk = min(self.k, unused.size)
+            unused_dev = torch.from_numpy(unused).to(self.device)
+            sub = self._lib_dev.index_select(0, unused_dev)
+            ids = torch.from_numpy(np.asarray(ids, dtype=np.int64))
+            for lo in range(0, m, self.max_batch):  # normally a single chunk
+                chunk = ids[lo : lo + self.max_batch].to(self.device)
+                dd, rr = _refill_topk(self._blocks_dev, chunk, sub, unused_dev, kk)
+                self.n_calls += 1
+                self.n_blocks += len(chunk)
+                self.n_rows += unused.size
+                out_d[lo : lo + self.max_batch, :kk] = dd
+                out_r[lo : lo + self.max_batch, :kk] = rr
         return out_d, out_r

@@ -27,12 +27,12 @@ from __future__ import annotations
 
 import math
 import sys
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from emosaic_tpu_torch.monitor import record, span
 from emosaic_tpu_torch.ops.analysis import source_blocks, to_device_u8
 from emosaic_tpu_torch.ops.composite import compose_mosaic
 from emosaic_tpu_torch.ops.distance import (
@@ -61,7 +61,7 @@ class RenderOutcome:
     stats: RenderStats
     tile_set: TileSet
     items: np.ndarray | None = None  # [vtiles, htiles] signed item grid
-    info: dict | None = None  # the no-repeat renderer's scoring record
+    info: dict | None = None  # the render's record: stage spans, counters
 
 
 def insufficient_tiles_check(n_blocks: int, n_tiles: int) -> None:
@@ -86,8 +86,9 @@ def start_render(source_img, tile_set, tile_size, log, *, device, check_tiles=Fa
     )
     if check_tiles:
         insufficient_tiles_check(htiles * vtiles, len(tile_set))
-    blocks = source_blocks(source_img, dim, device=device)  # [B, 3N], y-major
-    lib = build_library(to_device_u8(tile_set.palettes, device))  # [2T, 3N]
+    with span("render.prologue"):
+        blocks = source_blocks(source_img, dim, device=device)  # [B, 3N], y-major
+        lib = build_library(to_device_u8(tile_set.palettes, device))  # [2T, 3N]
     return dim, htiles, vtiles, blocks, lib
 
 
@@ -101,24 +102,25 @@ def finish_render(
     for matched modes, output pixels for global no-repeat); `timed_log`
     adds the no-repeat path's compose timing line."""
     num_tiles = len(tile_set)
-    items = rows_to_items(torch.from_numpy(rows), num_tiles).numpy()
-    items = np.where(rows < 0, 0, items)  # unassigned -> black
-    items_grid = items.reshape(vtiles, htiles)
-    stats = RenderStats.from_grid(
-        items_grid,
-        np.asarray(dists).reshape(vtiles, htiles),
-        stats_step,
-        stats_step,
-        tile_set,
-    )
+    with span("render.stats"):
+        items = rows_to_items(torch.from_numpy(rows), num_tiles).numpy()
+        items = np.where(rows < 0, 0, items)  # unassigned -> black
+        items_grid = items.reshape(vtiles, htiles)
+        stats = RenderStats.from_grid(
+            items_grid,
+            np.asarray(dists).reshape(vtiles, htiles),
+            stats_step,
+            stats_step,
+            tile_set,
+        )
     image = None
     if compose:
-        t0 = time.perf_counter()
-        if stack is None:
-            stack = tile_set.image_stack(tile_size)
-        image = compose_mosaic(items_grid, stack, device=device)
+        with span("render.compose") as composing:
+            if stack is None:
+                stack = tile_set.image_stack(tile_size)
+            image = compose_mosaic(items_grid, stack, device=device)
         if timed_log is not None:
-            timed_log(f"   compose: {time.perf_counter() - t0:.2f}s")
+            timed_log(f"   compose: {composing.s:.2f}s")
     return RenderOutcome(
         image=image, stats=stats, tile_set=tile_set, items=items_grid
     )
@@ -206,72 +208,77 @@ def render_nto1(
     if len(tile_set) == 0:
         # the reference panics deep in the kd-tree here; fail clearly
         raise ValueError("❌ No tiles available for matching")
-    dim, htiles, vtiles, blocks, lib = start_render(
-        source_img, tile_set, tile_size, log, device=device, check_tiles=no_repeat
-    )
-    if no_repeat or randomize is not None:
-        # these branches always score with the exact L1 top-k: the
-        # match-path-only knobs would otherwise be dropped silently
-        ignored = [
-            name
-            for name, off in (
-                (f"--matcher {use_lut}", use_lut == "auto"),
-                (f"--metric {metric}", metric == "l1"),
-                ("--matcher hybrid", not hybrid),
-            )
-            if not off
-        ]
-        if ignored:
-            log(
-                f"⚠️  {', '.join(ignored)} ignored: "
-                f"{'randomize' if randomize is not None else 'greedy no-repeat'} "
-                "always scores with the exact L1 top-k"
-            )
-    rng = np.random.default_rng(seed)
-
-    def topk(k: int) -> tuple[np.ndarray, np.ndarray]:
-        """Exact top-k candidate lists, sharded over the mesh when given."""
-        if mesh is not None:
-            from emosaic_tpu_torch.parallel import sharded_l1_topk
-
-            return sharded_l1_topk(blocks, lib, k, mesh)
-        return l1_topk(blocks, lib, k)
-
-    if randomize is not None:
-        k = min(_DEFAULT_RANDOM_NEIGHBORS, lib.shape[0])
-        cd, cr = topk(k)
-        mins = cd[:, 0].astype(np.float64)
-        eligible = (cd.astype(np.float64) - mins[:, None]) < (
-            float(randomize) * mins[:, None] / 100.0
+    info = {}
+    with record(info):
+        dim, htiles, vtiles, blocks, lib = start_render(
+            source_img, tile_set, tile_size, log, device=device, check_tiles=no_repeat
         )
-        eligible[:, 0] = True  # deviation: avoid the reference's min==0 panic
-        counts = eligible.sum(axis=1)
-        pick = (rng.random(len(blocks)) * counts).astype(np.int64)
-        rows = np.take_along_axis(cr, pick[:, None], axis=1)[:, 0]
-        dists = np.take_along_axis(cd, pick[:, None], axis=1)[:, 0]
-    elif no_repeat:
-        k = min(_GREEDY_TOPK, lib.shape[0])
-        cd, cr = topk(k)
-        # render order: rows in sequence, x shuffled per row
-        order = np.concatenate(
-            [by * htiles + rng.permutation(htiles) for by in range(vtiles)]
-        )
-        from emosaic_tpu_torch import native
+        if no_repeat or randomize is not None:
+            # these branches always score with the exact L1 top-k: the
+            # match-path-only knobs would otherwise be dropped silently
+            ignored = [
+                name
+                for name, off in (
+                    (f"--matcher {use_lut}", use_lut == "auto"),
+                    (f"--metric {metric}", metric == "l1"),
+                    ("--matcher hybrid", not hybrid),
+                )
+                if not off
+            ]
+            if ignored:
+                log(
+                    f"⚠️  {', '.join(ignored)} ignored: "
+                    f"{'randomize' if randomize is not None else 'greedy no-repeat'} "
+                    "always scores with the exact L1 top-k"
+                )
+        rng = np.random.default_rng(seed)
 
-        blocks_h, lib_h = blocks.cpu().numpy(), lib.cpu().numpy()
-        if native.available():
-            rows, dists = native.greedy_sequence(order, cd, cr, blocks_h, lib_h)
-        else:
-            refill = make_numpy_refill(blocks_h, lib_h)
-            rows, dists = greedy_sequence_assign(
-                order, cd, cr, lib.shape[0], refill
-            )
-    else:
-        dists, rows = match_blocks(
-            blocks, lib, use_lut=use_lut, metric=metric, hybrid=hybrid, mesh=mesh
+        def topk(k: int) -> tuple[np.ndarray, np.ndarray]:
+            """Exact top-k candidate lists, sharded over the mesh when given."""
+            if mesh is not None:
+                from emosaic_tpu_torch.parallel import sharded_l1_topk
+
+                return sharded_l1_topk(blocks, lib, k, mesh)
+            return l1_topk(blocks, lib, k)
+
+        with span("render.match"):
+            if randomize is not None:
+                k = min(_DEFAULT_RANDOM_NEIGHBORS, lib.shape[0])
+                cd, cr = topk(k)
+                mins = cd[:, 0].astype(np.float64)
+                eligible = (cd.astype(np.float64) - mins[:, None]) < (
+                    float(randomize) * mins[:, None] / 100.0
+                )
+                eligible[:, 0] = True  # deviation: avoid the reference's min==0 panic
+                counts = eligible.sum(axis=1)
+                pick = (rng.random(len(blocks)) * counts).astype(np.int64)
+                rows = np.take_along_axis(cr, pick[:, None], axis=1)[:, 0]
+                dists = np.take_along_axis(cd, pick[:, None], axis=1)[:, 0]
+            elif no_repeat:
+                k = min(_GREEDY_TOPK, lib.shape[0])
+                cd, cr = topk(k)
+                # render order: rows in sequence, x shuffled per row
+                order = np.concatenate(
+                    [by * htiles + rng.permutation(htiles) for by in range(vtiles)]
+                )
+                from emosaic_tpu_torch import native
+
+                blocks_h, lib_h = blocks.cpu().numpy(), lib.cpu().numpy()
+                if native.available():
+                    rows, dists = native.greedy_sequence(order, cd, cr, blocks_h, lib_h)
+                else:
+                    refill = make_numpy_refill(blocks_h, lib_h)
+                    rows, dists = greedy_sequence_assign(
+                        order, cd, cr, lib.shape[0], refill
+                    )
+            else:
+                dists, rows = match_blocks(
+                    blocks, lib, use_lut=use_lut, metric=metric, hybrid=hybrid, mesh=mesh
+                )
+        # stats_step=dim: source-pixel coords (rendering.rs:211-214)
+        out = finish_render(
+            rows, dists, vtiles, htiles, tile_set, dim, tile_size,
+            stack=stack, compose=compose, device=device,
         )
-    # stats_step=dim: source-pixel coords (rendering.rs:211-214)
-    return finish_render(
-        rows, dists, vtiles, htiles, tile_set, dim, tile_size,
-        stack=stack, compose=compose, device=device,
-    )
+    out.info = info
+    return out

@@ -29,6 +29,7 @@ import time
 import numpy as np
 import torch
 
+from emosaic_tpu_torch.monitor import record, span
 from emosaic_tpu_torch.ops import distance as _distance
 from emosaic_tpu_torch.ops.distance import (
     DeviceRefiller,
@@ -71,101 +72,121 @@ def render_nto1_no_repeat(
 ) -> RenderOutcome:
     """Render the global-greedy no-repeat mosaic on `device`.
 
-    The outcome's `info` holds the scorer used, its statistics (route,
-    certified and fallback rows, per-step seconds), the assignment engine
-    and its device refill events, and the seconds of scoring, assignment
-    and compose (each ending in a synchronize). `mesh`
-    (`parallel.make_mesh`) shards the exact scoring over it."""
+    The outcome's `info` holds the scorer used and its statistics (route,
+    certified and fallback rows), the assignment engine and its refill
+    counters, the seconds of scoring and assignment, and the render's
+    stage spans (`monitor.span`). `mesh` (`parallel.make_mesh`) shards the
+    exact scoring over it."""
     if scorer not in ("exact", "hybrid"):
         # fail loud: a typo would otherwise silently run the exact path
         raise ValueError(f"scorer must be 'exact' or 'hybrid', got {scorer!r}")
-    dim, htiles, vtiles, blocks, lib = start_render(
-        source_img, tile_set, tile_size, log, device=device, check_tiles=True
-    )
-    num_tiles = len(tile_set)
-    b, l = blocks.shape[0], lib.shape[0]
     info = {}
-
-    t0 = time.perf_counter()
-    if scorer == "hybrid" and b * l > _EXACT_BUDGET:
-        # the L2 prefilter + exact-L1 rescore: an approximate candidate
-        # set with exact distances; assignment still refills exactly, so
-        # only the set's membership is approximate
-        scorer_used = "hybrid"
-        k = min(_TRUNCATED_K, l)
-        cd, cr = l1_topk_hybrid(blocks, lib, k, k_pre=min(2 * k, l))
-    elif mesh is not None:
-        # the adaptive certified scorer with blocks over every mesh
-        # position; declined shapes and concentrated data go inside to the
-        # sharded stripes. Truncation to K does not change the assignment
-        # (see _TRUNCATED_K)
-        from emosaic_tpu_torch.parallel import sharded_l1_topk_adaptive
-
-        scorer_used = "sharded-exact"
-        k = min(_TRUNCATED_K, l)
-        info["scoring"] = {}
-        cd, cr = sharded_l1_topk_adaptive(blocks, lib, k, mesh, stats=info["scoring"])
-    elif b * l <= _EXACT_BUDGET and lib.numel() <= _distance.DEVICE_LIB_BYTES_MAX:
-        # the full sorted candidate list per block: the dense matrix on the
-        # device, a stable argsort on the host (a device top-k at k = L is
-        # far slower)
-        scorer_used = "exact-full"
-        dist = l1_dist_matrix(blocks, lib)
-        cr = np.argsort(dist, axis=1, kind="stable").astype(np.int32)
-        cd = np.take_along_axis(dist, cr, axis=1).astype(np.int32)
-    else:
-        # exact truncated lists from the adaptive certified scorer;
-        # concentrated data routes inside to the two-level scorer, with
-        # identical results
-        scorer_used = "adaptive-exact"
-        k = min(_TRUNCATED_K, l)
-        info["scoring"] = {}
-        cd, cr = l1_topk_adaptive(blocks, lib, k, stats=info["scoring"])
-    info["scorer"] = scorer_used
-    info["scoring_s"] = time.perf_counter() - t0
-    log(f"   scoring ({scorer_used}): {info['scoring_s']:.2f}s")
-    from emosaic_tpu_torch import native
-
-    t0 = time.perf_counter()
-    blocks_h = blocks.cpu().numpy()
-    lib_h = lib.cpu().numpy()
-    if native.available():
-        mode = os.environ.get("EMOSAIC_DEVICE_REFILL", "auto")
-        # read the budget at call time so tuning or a test's patch applies
-        oversized = lib.numel() > _distance.DEVICE_LIB_BYTES_MAX
-        want_dev = (
-            mode == "1"
-            or (mode not in ("0", "off") and l * lib.shape[1] >= _DEVICE_REFILL_MIN_LD)
-        ) and not oversized
-        if mode == "1" and oversized:
-            log(
-                "   EMOSAIC_DEVICE_REFILL=1 overridden: library exceeds the"
-                " device-resident budget; refills use the exact host scan"
-            )
-        refiller = DeviceRefiller(blocks, lib) if want_dev else None
-        rows, dists = native.greedy_global(
-            cd, cr, blocks_h, lib_h, num_tiles,
-            refill_cb=refiller,
-            cb_max_batch=refiller.max_batch if refiller else 4096,
+    with record(info):
+        dim, htiles, vtiles, blocks, lib = start_render(
+            source_img, tile_set, tile_size, log, device=device, check_tiles=True
         )
-        info["engine"] = "native"
-        info["refill_events"] = refiller.n_calls if refiller else 0
-        if refiller is not None and refiller.n_calls:
-            log(f"   device refill events: {refiller.n_calls}")
-    else:
-        refill = make_numpy_refill(blocks_h, lib_h)
-        rows, dists = greedy_global_assign(cd, cr, l, num_tiles, refill)
-        info["engine"] = "python"
-    info["assign_s"] = time.perf_counter() - t0
-    log(f"   assignment: {info['assign_s']:.2f}s")
+        num_tiles = len(tile_set)
+        b, l = blocks.shape[0], lib.shape[0]
 
-    # stats_step=tile_size: output-pixel coords (rendering.rs:357-364)
-    t0 = time.perf_counter()
-    out = finish_render(
-        rows, dists, vtiles, htiles, tile_set, tile_size, tile_size,
-        stack=stack, compose=compose, device=device, timed_log=log,
-    )
-    _distance._sync(torch.device(device))
-    info["finish_s"] = time.perf_counter() - t0
+        with span("norepeat.scoring") as scoring:
+            if scorer == "hybrid" and b * l > _EXACT_BUDGET:
+                # the L2 prefilter + exact-L1 rescore: an approximate candidate
+                # set with exact distances; assignment still refills exactly, so
+                # only the set's membership is approximate
+                scorer_used = "hybrid"
+                k = min(_TRUNCATED_K, l)
+                cd, cr = l1_topk_hybrid(blocks, lib, k, k_pre=min(2 * k, l))
+            elif mesh is not None:
+                # the adaptive certified scorer with blocks over every mesh
+                # position; declined shapes and concentrated data go inside to the
+                # sharded stripes. Truncation to K does not change the assignment
+                # (see _TRUNCATED_K)
+                from emosaic_tpu_torch.parallel import sharded_l1_topk_adaptive
+
+                scorer_used = "sharded-exact"
+                k = min(_TRUNCATED_K, l)
+                info["scoring"] = {}
+                cd, cr = sharded_l1_topk_adaptive(blocks, lib, k, mesh, stats=info["scoring"])
+            elif b * l <= _EXACT_BUDGET and lib.numel() <= _distance.DEVICE_LIB_BYTES_MAX:
+                # the full sorted candidate list per block: the dense matrix on the
+                # device, a stable argsort on the host (a device top-k at k = L is
+                # far slower)
+                scorer_used = "exact-full"
+                dist = l1_dist_matrix(blocks, lib)
+                cr = np.argsort(dist, axis=1, kind="stable").astype(np.int32)
+                cd = np.take_along_axis(dist, cr, axis=1).astype(np.int32)
+            else:
+                # exact truncated lists from the adaptive certified scorer;
+                # concentrated data routes inside to the two-level scorer, with
+                # identical results
+                scorer_used = "adaptive-exact"
+                k = min(_TRUNCATED_K, l)
+                info["scoring"] = {}
+                cd, cr = l1_topk_adaptive(blocks, lib, k, stats=info["scoring"])
+        info["scorer"] = scorer_used
+        info["scoring_s"] = scoring.s
+        log(f"   scoring ({scorer_used}): {info['scoring_s']:.2f}s")
+        from emosaic_tpu_torch import native
+
+        with span("norepeat.to_host") as to_host:
+            blocks_h = blocks.cpu().numpy()
+            lib_h = lib.cpu().numpy()
+        with span("norepeat.engine") as engine:
+            if native.available():
+                mode = os.environ.get("EMOSAIC_DEVICE_REFILL", "auto")
+                # read the budget at call time so tuning or a test's patch applies
+                oversized = lib.numel() > _distance.DEVICE_LIB_BYTES_MAX
+                want_dev = (
+                    mode == "1"
+                    or (mode not in ("0", "off") and l * lib.shape[1] >= _DEVICE_REFILL_MIN_LD)
+                ) and not oversized
+                if mode == "1" and oversized:
+                    log(
+                        "   EMOSAIC_DEVICE_REFILL=1 overridden: library exceeds the"
+                        " device-resident budget; refills use the exact host scan"
+                    )
+                refiller = DeviceRefiller(blocks, lib) if want_dev else None
+                rows, dists = native.greedy_global(
+                    cd, cr, blocks_h, lib_h, num_tiles,
+                    refill_cb=refiller,
+                    cb_max_batch=refiller.max_batch if refiller else 4096,
+                    stats=info,
+                )
+                info["engine"] = "native"
+                info["refill_events"] = refiller.n_calls if refiller else 0
+                info["refill_blocks"] = refiller.n_blocks if refiller else 0
+                info["refill_rows"] = refiller.n_rows if refiller else 0
+                if refiller is not None and refiller.n_calls:
+                    log(f"   device refill events: {refiller.n_calls}")
+            else:
+                rows, dists = greedy_global_assign(
+                    cd, cr, l, num_tiles, _counted(make_numpy_refill(blocks_h, lib_h), info)
+                )
+                info["engine"] = "python"
+        info["assign_s"] = to_host.s + engine.s
+        log(f"   assignment: {info['assign_s']:.2f}s")
+
+        # stats_step=tile_size: output-pixel coords (rendering.rs:357-364)
+        out = finish_render(
+            rows, dists, vtiles, htiles, tile_set, tile_size, tile_size,
+            stack=stack, compose=compose, device=device, timed_log=log,
+        )
+        _distance._sync(torch.device(device))
     out.info = info
     return out
+
+
+def _counted(refill, info: dict):
+    """`refill` counting its calls and seconds into `info` as the native
+    engine counts its host masked scans (`refill_host_events`,
+    `refill_host_s`)."""
+    info.update(refill_host_events=0, refill_host_s=0.0)
+
+    def counted(block_ids, used):
+        t0 = time.perf_counter()
+        out = refill(block_ids, used)
+        info["refill_host_events"] += 1
+        info["refill_host_s"] += time.perf_counter() - t0
+        return out
+
+    return counted

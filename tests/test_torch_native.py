@@ -196,6 +196,30 @@ def test_cb_k_follows_the_refiller(rng, engine):
     np.testing.assert_array_equal(got[0], base[0])
 
 
+@pytest.mark.parametrize("refiller", [None, "device", "deferring"])
+def test_greedy_global_stats_leave_the_rows_alone(rng, engine, refiller):
+    """`stats` gets the engine's host scans and their seconds; the rows and
+    distances are the ones without it."""
+    t, b, d, k = 120, 200, 96, 6
+    blocks, lib, cd, cr = _clustered(rng, t, b, d, k)
+    base = native.greedy_global(cd, cr, blocks, lib, t)
+    kw = {}
+    if refiller is not None:
+        dev = DeviceRefiller(blocks, lib, defer_events=0 if refiller == "device" else 10**9)
+        kw = dict(refill_cb=dev, cb_max_batch=dev.max_batch)
+    stats = {}
+    got = native.greedy_global(cd, cr, blocks, lib, t, stats=stats, **kw)
+    np.testing.assert_array_equal(got[0], base[0])
+    np.testing.assert_array_equal(got[1], base[1])
+    assert set(stats) == {"refill_host_events", "refill_host_s"}
+    if refiller == "device":
+        assert stats == {"refill_host_events": 0, "refill_host_s": 0.0} and dev.n_calls > 0
+    else:
+        assert stats["refill_host_events"] > 0 and stats["refill_host_s"] > 0
+    if refiller == "deferring":
+        assert stats["refill_host_events"] == dev.n_deferred
+
+
 def test_native_trim_matches_numpy_trim(rng, engine):
     img = np.full((30, 44, 3), 255, dtype=np.uint8)
     img[5:25, 8:40] = rng.integers(0, 200, size=(20, 32, 3), dtype=np.uint8)

@@ -55,6 +55,12 @@ def _same(got, want, ts=8):
     np.testing.assert_array_equal(got.stats.render(ts), want.stats.render(ts))
 
 
+#: the stage spans of every no-repeat render, and the adaptive scorer's steps
+_NO_REPEAT_STAGES = ("render", "render.prologue", "norepeat.scoring", "norepeat.to_host",
+                     "norepeat.engine", "render.stats", "render.compose")
+_SCORING_STEPS = ("prepare", "coarse", "rescore", "fallback", "audit")
+
+
 @pytest.mark.parametrize("route", ["exact-full", "adaptive-exact"])
 @pytest.mark.parametrize("engine", ["native", "python"])
 def test_render_nto1_no_repeat_matches_jax(rng, monkeypatch, route, engine):
@@ -70,8 +76,15 @@ def test_render_nto1_no_repeat_matches_jax(rng, monkeypatch, route, engine):
         monkeypatch.setattr(native, "available", lambda: False)
     got = norepeat.render_nto1_no_repeat(src, ts, 8, device="cpu", stack=stack, **quiet)
     assert got.info["scorer"] == route and got.info["engine"] == engine
+    spans = got.info["spans"]
+    assert set(_NO_REPEAT_STAGES) <= set(spans)
+    assert got.info["scoring_s"] == spans["norepeat.scoring"]["s"]
+    assert got.info["assign_s"] == pytest.approx(
+        spans["norepeat.to_host"]["s"] + spans["norepeat.engine"]["s"])
     if route == "adaptive-exact":
         assert got.info["scoring"]["route"] == "adaptive"
+        assert {f"scoring.{step}" for step in _SCORING_STEPS} <= set(spans)
+        assert not {f"{step}_s" for step in _SCORING_STEPS} & set(got.info["scoring"])
     _same(got, want)
     items = got.items.reshape(-1)
     assert len(set(np.abs(items).tolist())) == items.size  # mirror-pair exclusion
@@ -91,6 +104,41 @@ def test_no_repeat_device_refill_route_bit_identical(rng, monkeypatch):
     got = norepeat.render_nto1_no_repeat(src, ts, 4, device="cpu", stack=stack, **quiet)
     if native.available():
         assert got.info["refill_events"] > 0
+    _same(got, want, 4)
+
+
+@pytest.mark.parametrize("engine,defer", [("native", "0"), ("native", None), ("python", None)])
+def test_no_repeat_refill_counters(rng, monkeypatch, engine, defer):
+    """Device refills count their calls, blocks and rows and are spans;
+    the engine's host scans (the refiller's deferrals among them) count
+    their events and seconds; the render is the JAX package's either way."""
+    pal, src = _clustered_scene(rng, 200, 2, 24, 24)  # 144 blocks, T = 200
+    stack = rng.integers(0, 256, size=(200, 4, 4, 3), dtype=np.uint8)
+    ts, jts = _sets(pal)
+    want = jax_norepeat.render_nto1_no_repeat(src, jts, 4, stack=stack, **quiet)
+    monkeypatch.setattr(norepeat, "_EXACT_BUDGET", 0)
+    monkeypatch.setattr(norepeat, "_TRUNCATED_K", 4)
+    monkeypatch.setenv("EMOSAIC_DEVICE_REFILL", "1")
+    if defer is not None:
+        monkeypatch.setenv("EMOSAIC_DEVICE_REFILL_DEFER", defer)
+    if engine == "python":
+        monkeypatch.setattr(native, "available", lambda: False)
+    elif not native.available():
+        pytest.skip("the host C++ compiler could not build the native engine")
+    got = norepeat.render_nto1_no_repeat(src, ts, 4, device="cpu", stack=stack, **quiet)
+    info, spans = got.info, got.info["spans"]
+    assert set(_NO_REPEAT_STAGES) <= set(spans)
+    if defer == "0":
+        assert info["refill_blocks"] >= info["refill_events"] > 0
+        assert info["refill_rows"] >= info["refill_events"]
+        assert info["refill_host_events"] == 0
+        assert spans["norepeat.refill"]["n"] == info["refill_events"]
+        # the refills are the engine's children
+        assert spans["norepeat.engine"]["self_s"] == pytest.approx(
+            spans["norepeat.engine"]["s"] - spans["norepeat.refill"]["s"])
+    else:
+        assert info["refill_host_events"] > 0 and info["refill_host_s"] > 0
+        assert info.get("refill_events", 0) == 0 and "norepeat.refill" not in spans
     _same(got, want, 4)
 
 

@@ -72,3 +72,25 @@ def test_render_refuses_unported_routes_and_empty_sets(rng):
     empty = TileSet.from_arrays(np.zeros((0, 1, 3), np.uint8), [])
     with pytest.raises(ValueError, match="No tiles"):
         matched.render_nto1(src, empty, 8, device="cpu")
+
+
+@pytest.mark.parametrize("route,engine", [("match", None), ("randomize", None),
+                                          ("greedy", "native"), ("greedy", "python")])
+@pytest.mark.parametrize("compose", [True, False])
+def test_render_nto1_records_its_stages(rng, monkeypatch, route, engine, compose):
+    from emosaic_tpu_torch import native
+
+    if engine == "python":
+        monkeypatch.setattr(native, "available", lambda: False)
+    ts, _ = _sets(rng, 40, 4)
+    src = rng.integers(0, 256, size=(16, 20, 3), dtype=np.uint8)
+    stack = rng.integers(0, 256, size=(40, 8, 8, 3), dtype=np.uint8)
+    got = matched.render_nto1(
+        src, ts, 8, device="cpu", stack=stack, compose=compose, log=lambda *a: None,
+        randomize=10.0 if route == "randomize" else None, no_repeat=route == "greedy",
+    )
+    want = {"render", "render.prologue", "render.match", "render.stats"}
+    assert set(got.info["spans"]) == want | ({"render.compose"} if compose else set())
+    spans = got.info["spans"]
+    assert all(e["n"] == 1 and 0 <= e["self_s"] <= e["s"] for e in spans.values())
+    assert spans["render"]["s"] >= sum(spans[k]["s"] for k in spans if k != "render")
