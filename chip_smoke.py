@@ -7,7 +7,7 @@ Run from the root of a checkout. Phases, each printing its own lines:
 
   A  environment: torch/CUDA versions, the card's name and power limit,
      nvcc, and a GPU, or it stops;
-  B  build: the thirteen CUDA kernels from the ten sources of
+  B  build: the fourteen CUDA kernels from the eleven sources of
      `emosaic_tpu_torch/csrc/` (one nvcc per source, started together) and
      the native C++ greedy engine;
   C  each kernel against its plain torch version on the card, exactly:
@@ -26,7 +26,13 @@ Run from the root of a checkout. Phases, each printing its own lines:
      mode-4 shape and the flagship chunk, sampled, at D 12..49152 with
      the split depth, every segment length, caps 1..32, tie storms and
      col0 / real_l padding; timed against the f32 `torch.matmul` score
-     stripes and the argmin or packed-key `torch.topk` they replace) at
+     stripes and the argmin or packed-key `torch.topk` they replace) and
+     K12 (the no-repeat engine's masked refill: at the `generate_m32`
+     refill's shape at M 1, 4 and past the crossover, ragged libraries,
+     rows of 24..4112 bytes, masks with none, half and all rows used, k
+     1..256; timed at M 1, 4, 64, the crossover and twice it against the
+     gather + K10 stripe + `torch.topk` chain it replaces, with the
+     crossover that run measures) at
      test and main-path shapes, K3 and K4
      also past 4 GiB; K1 also on tie storms, at D = 49152 and 65800 and across D
      (12..3072 at B=4096, L=200000, in T byte pairs/s), K3 on both of its
@@ -51,8 +57,12 @@ Run from the root of a checkout. Phases, each printing its own lines:
      candidate lists against the two-level scorer's, K3 timed on those
      lists' own rescore inputs with their reuse, the worst case
      (uniform data) through `l1_topk` (the two-level scorer on K10, with
-     its own launch counts), and a full-library-consumption
-     assignment with device refills against host scans;
+     its own launch counts), a full-library-consumption
+     assignment with device refills (K12 up to the crossover, K10's
+     stripe above it) against host scans, and the same scene rendered
+     through `render_nto1_no_repeat` with a flat band of 1024 blocks
+     (their lists run dry together: refill calls of one block and of
+     hundreds), against the same render on the engine's host scans;
   L  the lab probes, with the composite lab kernels' plain versions made
      to raise: `probes/seg8.py` (`seg_topk` on K4, and the coarse pass at
      the TPU tool's 200k shape on K9 and on the cdist stripe + K4, both
@@ -106,7 +116,8 @@ Run from the root of a checkout. Phases, each printing its own lines:
      one process carrying `sharded_l1_argmin`'s exchange. A virtual mesh
      measures the shard plumbing's overhead, not a multi-GPU speedup;
   F  the launch counts of each main path's run (D: K1 and K2; N: K3, K9
-     and K2, and in its worst case K10's two entries; H: K3, K2 and K11's
+     and K2, in its worst case K10's two entries, in its full
+     consumption and its refilling render K12; H: K3, K2 and K11's
      two entries; L: K4,
      K9, K5, K6, K7 and K8; S: K1, K2 and K10's stripe; P: K1, K2, K3, K9
      and K10's top-cap), which must be > 0.
@@ -123,7 +134,7 @@ run's indices reach) over 3.35 TB/s, and its integer operations (an
 absolute difference and an add per byte pair, for K11 a multiply and an
 add; none counted for a selection) over 1979 TOP/s, the H100 SXM's
 published HBM rate and int8
-peak at its 700 W limit. K1, K3, K9 and K10 also carry `ceiling_ms`: exact L1
+peak at its 700 W limit. K1, K3, K9, K10 and K12 also carry `ceiling_ms`: exact L1
 has no tensor-core form at a useful cost, so the least time their
 CUDA-core work can take is the byte pairs over the VABSDIFF4 rate (SMs x
 64 lanes x 4 byte pairs x the maximum SM clock, or what a pure VABSDIFF4
@@ -1007,6 +1018,57 @@ def phase_c_k10(torch, gen, dev, card, rate, b=16384, l=65534,
     return st, tc
 
 
+def phase_c_k12(torch, dev, card, rate) -> dict:
+    """K12 (`masked_refill`) against its plain version, exactly, at the
+    `generate_m32` refill's shape (65534 rows of 3072 bytes, 37000 unused,
+    k = 256) at M 1, 4 and one past the crossover, and at ragged
+    libraries, rows of 24..3088 bytes, masks with none, half and all rows
+    used and k 1..256 (`probes/k12.py` `exact_checks`); then timed at that
+    shape at M = 1, 4, 64, `_K12_MAX_M` and twice it (`probes/k12.py`
+    `sweep`): the kernel, its plain version at M = 1, the chain it
+    replaces below the crossover (gather, K10's stripe, the packed-key
+    top-k) as the yardstick, and a whole refill call on each route, beside
+    the bound (the unused rows, the mask and the blocks over 3.35 TB/s)
+    and the VABSDIFF4 ceiling. The crossover it reports is the one this
+    run measures: the largest of those Ms up to which a call on K12 beats
+    one on the stripe's route."""
+    from emosaic_tpu_torch.ops import distance
+    from emosaic_tpu_torch.probes import k12 as probe
+
+    probe.exact_checks(torch, dev, distance)
+    cap = distance._K12_MAX_M
+    swept = probe.sweep(torch, dev, distance, sorted({1, 4, 64, cap, min(2 * cap, 4096)}))
+    rows = {r["m"]: r for r in swept}
+    crossover = probe.measured_crossover(swept)
+    _, lib, blocks, used = probe.scene(torch, dev)
+    ids = torch.arange(1, device=dev)
+    plain_ms = cuda_ms(torch, lambda: distance._masked_refill_ref(blocks, ids, lib, used, 256),
+                       reps=2)
+    del lib, blocks, used
+    torch.cuda.empty_cache()
+    res = {}
+    for m, r in rows.items():
+        nbytes = probe.UNUSED * probe.D + probe.L + m * probe.D + 2 * m * 256 * 4
+        pairs = m * probe.UNUSED * probe.D
+        sfx = "" if m == 1 else f"_m{m}"
+        res.update({f"ms{sfx}": r["k12_ms"], f"chain_ms{sfx}": r["chain_ms"],
+                    f"call_ms{sfx}": r["call_k12_ms"], f"call_stripe_ms{sfx}": r["call_stripe_ms"],
+                    f"bound_ms{sfx}": bound(nbytes, 2.0 * pairs)["bound_ms"],
+                    f"ceiling_ms{sfx}": ceiling(nbytes, pairs, rate)["ceiling_ms"]})
+        log(f"K12 M={m} over {probe.UNUSED} of {probe.L} rows x {probe.D} B, k 256: "
+            f"{r['k12_ms']:.4f} ms, bound {res[f'bound_ms{sfx}']:.4f}, ceiling "
+            f"{res[f'ceiling_ms{sfx}']:.4f}; the chain it replaces {r['chain_ms']:.4f} ms; a "
+            f"call {r['call_k12_ms']:.4f} ms, on the stripe's route {r['call_stripe_ms']:.4f} "
+            f"[{card}]")
+    log(f"K12 measured crossover: a call on K12 beats one on the stripe's route up to M = "
+        f"{crossover} of the Ms above (`_K12_MAX_M` {cap}) [{card}]")
+    res.update(plain_ms=plain_ms, library_ms=None, crossover_measured=crossover,
+               shape=f"M=1 x {probe.UNUSED} unused of {probe.L} rows x {probe.D} B, k 256",
+               yardstick="chain_ms: gather + K10's stripe + packed-key torch.topk")
+    log(f"K12 plain version at M=1: {plain_ms:.3f} ms [{card}]")
+    return res
+
+
 def phase_c_k11(torch, gen, dev, card, mode4=(262144, 200000, 48), flag=(4096, 65534, 3072),
                 rows_t=16384) -> tuple[dict, dict]:
     """K11's two entry points against their plain versions, bit for bit:
@@ -1866,12 +1928,14 @@ def phase_n(torch, gen, dev, card, t=32767, side=4096, t2=16384) -> dict:
     lib2 = distance.build_library(pal2)
     cd, cr = distance.l1_topk_adaptive(blocks2, lib2, k)
     bh, lh = blocks2.cpu().numpy(), lib2.cpu().numpy()
-    refiller = distance.DeviceRefiller(blocks2, lib2, defer_events=0)
-    refiller.warm()
+    refiller = distance.DeviceRefiller(blocks2, lib2)
+    for kern in KERNELS:
+        kern.launches = 0
     t0 = time.perf_counter()
     r_dev, d_dev = native.greedy_global(cd, cr, bh, lh, t2, refill_cb=refiller,
                                         cb_max_batch=refiller.max_batch)
     dev_s = time.perf_counter() - t0
+    launches_consume = {kern.name: kern.launches for kern in KERNELS}
     t0 = time.perf_counter()
     r_host, d_host = native.greedy_global(cd, cr, bh, lh, t2)
     host_s = time.perf_counter() - t0
@@ -1880,14 +1944,68 @@ def phase_n(torch, gen, dev, card, t=32767, side=4096, t2=16384) -> dict:
           "device-refill assignment != host-scan assignment")
     check(int((r_host >= 0).sum()) == t2, "the library was not fully consumed")
     log(f"N full consumption, B = T = {t2}, L = {2 * t2}: device refills "
-        f"{dev_s:.3f} s ({refiller.n_calls} events), host scans {host_s:.3f} s; "
-        f"rows and dists identical [{card}]")
-    del pal, pal2, blocks2, lib2, stack
+        f"{dev_s:.3f} s ({refiller.n_calls} events, {refiller.n_fused} on K12, "
+        f"{refiller.n_blocks} blocks), host scans {host_s:.3f} s; rows and dists identical "
+        f"[{card}]")
+
+    # the render entry on traffic that refills: the same scene through
+    # render_nto1_no_repeat, its first `flat` blocks one colour (a sky or a
+    # plain background), whose candidate lists run dry together, so the
+    # engine sends batches of hundreds of blocks besides single ones;
+    # against the same render on the engine's host scans
+    from emosaic_tpu_torch.tiles.tileset import TileSet
+
+    g2, flat = int(round(t2 ** 0.5)), 1024
+    sky = blocks2.clone()
+    sky[:flat] = sky[0]
+    src2 = (sky.view(g2, g2, dim, dim, 3).permute(0, 2, 1, 3, 4)
+            .reshape(g2 * dim, g2 * dim, 3).cpu().numpy())
+    ts2 = TileSet.from_arrays(pal2.cpu().numpy(), [f"synthetic/{i:05d}.jpg" for i in range(t2)])
+    stack2 = pal2.view(t2, dim, dim, 3)
+    for kern in KERNELS:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    res2 = render_nto1_no_repeat(src2, ts2, dim, device=dev, stack=stack2, log=lambda *a: None)
+    torch.cuda.synchronize()
+    refill_wall = time.perf_counter() - t0
+    launches_refill = {kern.name: kern.launches for kern in KERNELS}
+    info2 = res2.info
+    keep = os.environ.get("EMOSAIC_DEVICE_REFILL")
+    os.environ["EMOSAIC_DEVICE_REFILL"] = "0"
+    try:
+        t0 = time.perf_counter()
+        res3 = render_nto1_no_repeat(src2, ts2, dim, device=dev, stack=stack2,
+                                     log=lambda *a: None)
+        refill_host_wall = time.perf_counter() - t0
+    finally:
+        if keep is None:
+            del os.environ["EMOSAIC_DEVICE_REFILL"]
+        else:
+            os.environ["EMOSAIC_DEVICE_REFILL"] = keep
+    big = info2["refill_events"] - info2["refill_fused_events"]
+    log(f"N render_nto1_no_repeat on refilling traffic ({g2 * dim}^2, B = T = {t2}, the first "
+        f"{flat} blocks flat): {refill_wall:.3f} s, assignment {info2['assign_s']:.3f} s; "
+        f"{info2['refill_events']} device refill calls of {info2['refill_blocks']} blocks, "
+        f"{info2['refill_fused_events']} on K12 and {big} above the crossover "
+        f"(M > {distance._K12_MAX_M}) on K10's stripe; host scans "
+        f"{info2['refill_host_events']}. On the engine's host scans: {refill_host_wall:.3f} s, "
+        f"assignment {res3.info['assign_s']:.3f} s, {res3.info['refill_host_events']} scans "
+        f"[{card}]")
+    log(f"N launches in the refilling render: {launches_refill}")
+    check(info2["refill_host_events"] == 0, "a refill event went to the host scan")
+    check(np.array_equal(res2.items, res3.items), "device-refill render != host-scan render")
+    check(np.array_equal(res2.image, res3.image), "device-refill image != host-scan image")
+    log("N refilling render: items and image identical to the host scans' render")
+    del pal, pal2, blocks2, lib2, stack, sky, stack2, res2, res3
     torch.cuda.empty_cache()
     return {"launches": launches, "wall_s": wall, "certified": sc["certified"],
             "lists_adaptive_s": ad_s, "lists_twolevel_s": tl_s, "worst_s": worst_s,
             "launches_worst": launches_worst, "consume_device_s": dev_s,
-            "consume_host_s": host_s,
+            "consume_host_s": host_s, "consume_events": refiller.n_calls,
+            "consume_fused": refiller.n_fused, "launches_consume": launches_consume,
+            "launches_refill": launches_refill, "refill_render_s": refill_wall,
+            "refill_render_host_s": refill_host_wall, "refill_calls": info2["refill_events"],
+            "refill_fused": info2["refill_fused_events"],
             "k3_lists_ms": lists_ms, "k3_lists_reuse": lists_reuse,
             "k3_lists_shape": lists_shape}
 
@@ -2920,6 +3038,7 @@ def main() -> int:
         k9 = phase_c_k9(torch, gen, dev, card, fadd_rate(torch, dev, card))
         k10s, k10t = phase_c_k10(torch, gen, dev, card, rate)
         k11a, k11t = phase_c_k11(torch, gen, dev, card)
+        k12 = phase_c_k12(torch, dev, card, rate)
         k5 = phase_c_k5(torch, gen, dev, card)
         k6, k7 = phase_c_k6_k7(torch, gen, dev, card)
         k8 = phase_c_k8(torch, gen, dev, card)
@@ -2950,6 +3069,10 @@ def main() -> int:
         launches_w = n["launches_worst"]
         for path, counts, names in [("D", launches_d, ("l1_argmin", "compose")),
                                     ("N", launches_n, ("l1_rows", "coarse_topcap", "compose")),
+                                    ("N's full consumption", n["launches_consume"],
+                                     ("masked_refill",)),
+                                    ("N's refilling render", n["launches_refill"],
+                                     ("masked_refill",)),
                                     ("N's worst case", launches_w, ("l1_topcap", "l1_stripe")),
                                     ("H", launches_h, ("l1_rows", "compose", "l2_argmin",
                                                        "l2_topcap")),
@@ -2980,6 +3103,7 @@ def main() -> int:
         (KERNELS[10], k10t, "emosaic_tpu/ops/distance.py:1121", launches_w),
         (KERNELS[11], k11a, "emosaic_tpu/ops/distance.py:909", launches_h),
         (KERNELS[12], k11t, "emosaic_tpu/ops/distance.py:706", launches_h),
+        (KERNELS[13], k12, "none", n["launches_refill"]),
     ]:
         rows.append({
             "name": k.name, "route": "cuda",
@@ -2999,6 +3123,15 @@ def main() -> int:
                                  "(emosaic_tpu/ops/distance.py:908-940), no Pallas kernel")
     rows[12]["also_replaces"] = ("none: _mxu_prefilter_jit's XLA dot + approx_min_k "
                                  "(emosaic_tpu/ops/distance.py:703-723), no Pallas kernel")
+    rows[13]["also_replaces"] = ("none: the refill chain of ops/distance.py `_refill_topk` "
+                                 "(gather, K10's stripe, packed-key torch.topk); the JAX "
+                                 "package's `_refill_topk_jit` is XLA, no Pallas kernel")
+    rows[13].update(consume_device_s=n["consume_device_s"], consume_host_s=n["consume_host_s"],
+                    consume_events=n["consume_events"], consume_fused=n["consume_fused"],
+                    launches_consume=n["launches_consume"]["masked_refill"],
+                    refill_render_s=n["refill_render_s"],
+                    refill_render_host_s=n["refill_render_host_s"],
+                    refill_render_calls=n["refill_calls"], refill_render_fused=n["refill_fused"])
     rows[1]["also_replaces"] = "emosaic_tpu/ops/composite.py:82"
     rows[2]["also_replaces"] = "tools/tpu_r19_flatdma.py:48"
     rows[2]["launches_h"] = launches_h["l1_rows"]

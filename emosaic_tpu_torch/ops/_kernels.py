@@ -194,9 +194,16 @@ L2_TOPCAP = CudaKernel(
     [_I, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _L, _L, _L, _L, _L, _I, _P],
     source="l2_score",
 )
+#: csrc/masked_refill.cu, the no-repeat engine's masked refill (see
+#: ops/distance.py `masked_refill`)
+MASKED_REFILL = CudaKernel(
+    "masked_refill",
+    "emosaic_masked_refill",
+    [_I, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P, _P, _L, _P, _P],
+)
 KERNELS = (L1_ARGMIN, COMPOSE, L1_ROWS, SEG_TOPCAP, FLOOR_WRITE, COMPOSE_BULK,
            COMPOSE_BULK2, BAND_TRANSPOSE, COARSE_TOPCAP, L1_STRIPE, L1_TOPCAP,
-           L2_ARGMIN, L2_TOPCAP)
+           L2_ARGMIN, L2_TOPCAP, MASKED_REFILL)
 
 
 def build_all(kernels=KERNELS, force: bool = False) -> dict:

@@ -156,8 +156,10 @@ def render_nto1_no_repeat(
                 info["refill_events"] = refiller.n_calls if refiller else 0
                 info["refill_blocks"] = refiller.n_blocks if refiller else 0
                 info["refill_rows"] = refiller.n_rows if refiller else 0
+                info["refill_fused_events"] = refiller.n_fused if refiller else 0
                 if refiller is not None and refiller.n_calls:
-                    log(f"   device refill events: {refiller.n_calls}")
+                    log(f"   device refill events: {refiller.n_calls} ({refiller.n_fused} on K12,"
+                        f" {100 * refiller.n_fused / refiller.n_calls:.1f}%)")
             else:
                 rows, dists = greedy_global_assign(
                     cd, cr, l, num_tiles, _counted(make_numpy_refill(blocks_h, lib_h), info)

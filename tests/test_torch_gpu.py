@@ -1,4 +1,4 @@
-"""K1 to K11 against their plain torch versions on an NVIDIA GPU, and the
+"""K1 to K12 against their plain torch versions on an NVIDIA GPU, and the
 sharded routes of `parallel/` on a virtual mesh of the one card.
 
 A CUDA kernel has no CPU mode, so these tests are marked `cuda` and skip
@@ -26,6 +26,7 @@ from emosaic_tpu_torch.ops._kernels import (
     L1_TOPCAP,
     L2_ARGMIN,
     L2_TOPCAP,
+    MASKED_REFILL,
     SEG_TOPCAP,
 )
 
@@ -797,3 +798,64 @@ def test_sharded_on_a_virtual_card_mesh(cuda):
     want = distance.l1_topk_adaptive(blocks, lib, 8)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
+
+
+def _k12_check(blocks, ids, lib, used, k):
+    before = MASKED_REFILL.launches
+    got = distance.masked_refill(blocks, ids, lib, used, k)
+    assert MASKED_REFILL.launches == before + 1
+    torch.cuda.synchronize()
+    want = distance._masked_refill_ref(blocks, ids, lib, used, k)
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("m", ["1", "crossover", "above"])
+def test_k12_matches_plain_at_the_cell_shape(cuda, m):
+    """K12 at `generate_m32.photo`'s refill: 65534 rows of 3072 bytes,
+    about 37k unused, k = 256, at one block, at the crossover and one
+    above it (the kernel takes any M; the refiller sends it only up to the
+    crossover); block 0 is a library row with 300 unused copies, so the
+    256th place cuts a group of equal distances."""
+    m = {"1": 1, "crossover": distance._K12_MAX_M, "above": distance._K12_MAX_M + 1}[m]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(12)
+    l, d, k = 65534, 3072, 256
+    lib = torch.randint(0, 256, (l, d), dtype=torch.uint8, device=cuda, generator=gen)
+    blocks = torch.randint(0, 256, (4096, d), dtype=torch.uint8, device=cuda, generator=gen)
+    used = (torch.rand(l, device=cuda, generator=gen) < 0.435).to(torch.uint8)
+    copies = torch.randperm(l, device=cuda, generator=gen)[:300]
+    lib[copies] = lib[7].clone()
+    used[copies] = 0
+    ids = torch.randperm(4096, device=cuda, generator=gen)[:m]
+    blocks[ids[0]] = lib[7]
+    got = _k12_check(blocks, ids, lib, used, k)
+    same = ((lib == lib[7]).all(1) & (used == 0)).nonzero().flatten()
+    assert len(same) >= 300 and (got[0, 0] == 0).all() and torch.equal(got[1, 0], same[:k].int())
+    refiller = distance.DeviceRefiller(blocks, lib, k=k)
+    dd, dr = refiller(ids.cpu().numpy(), used.cpu().numpy())
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(dd, got[0].cpu().numpy())
+    np.testing.assert_array_equal(dr, got[1].cpu().numpy())
+    assert refiller.n_fused == int(m <= distance._K12_MAX_M)
+
+
+@pytest.mark.parametrize("l,d", [(1034, 24), (1, 3), (129, 48), (5000, 3088), (300, 4112)])
+def test_k12_matches_plain_at_edges(cuda, l, d):
+    """Ragged libraries and rows that are not whole 16-byte vectors, and
+    rows past 4096 bytes (read again for each pass of blocks); masks
+    with none, all, fewer than k and one row unused; k from 1 to the
+    selection's largest; tie storms (one row repeated)."""
+    rng = np.random.default_rng(l + d)
+    lib, blocks = _u8(rng, (l, d), cuda), _u8(rng, (70, d), cuda)
+    storm = lib[:1].repeat(l, 1)
+    for m in (1, 3, 64):
+        ids = torch.from_numpy(rng.choice(70, size=m, replace=False)).to(cuda)
+        for frac in (0.0, 0.5, 1.0):
+            used = torch.from_numpy((rng.random(l) < frac).astype(np.uint8)).to(cuda)
+            for k in (1, 16, 256, distance._K12_MAX_K):
+                _k12_check(blocks, ids, lib, used, k)
+            _k12_check(blocks, ids, storm, used, 16)
+        one = torch.ones(l, dtype=torch.uint8, device=cuda)
+        one[l // 2] = 0
+        _k12_check(blocks, ids, lib, one, 256)

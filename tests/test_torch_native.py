@@ -1,14 +1,17 @@
 """The port's native engine (`emosaic_tpu_torch.native`, a copy of the JAX
 package's C++ helpers built into `emosaic_tpu_torch/_build/`) and its
-device refiller (`ops.distance.DeviceRefiller`) against the JAX package's
+device refiller (`ops.distance.DeviceRefiller`) and K12's plain version
+(`ops.distance.masked_refill` on CPU tensors) against the JAX package's
 pure-Python engines and numpy refill, exactly.
 
-The refiller runs on CPU tensors here (its stripes are the plain int32
-version); on the card the same code runs `torch.cdist`.
+The refiller runs on CPU tensors here (K12's plain version, and the plain
+int32 stripes above `_K12_MAX_M` blocks); on the card the same code
+launches K12 and K10's stripe.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from emosaic_tpu.io.prep import trim_bounds as jax_trim_bounds
 from emosaic_tpu.render.greedy import (
@@ -18,6 +21,7 @@ from emosaic_tpu.render.greedy import (
 )
 from emosaic_tpu_torch import native
 from emosaic_tpu_torch.io import prep
+from emosaic_tpu_torch.ops import distance
 from emosaic_tpu_torch.ops.distance import I32_MAX, DeviceRefiller, _DeferRefill
 from emosaic_tpu_torch.render import greedy as port_greedy
 
@@ -90,7 +94,7 @@ def test_device_refiller_matches_numpy_refill(rng):
     t, b, d, k = 70, 24, 48, 16
     blocks, lib, _, _ = _clustered(rng, t, b, d, k)
     refill = make_numpy_refill(blocks, lib, k=k)
-    dev = DeviceRefiller(blocks, lib, k=k, defer_events=0)
+    dev = DeviceRefiller(blocks, lib, k=k)
     for frac in (0.0, 0.5, 0.95, 1.0):
         used = (rng.random(2 * t) < frac).astype(np.uint8)
         ids = rng.choice(b, size=7, replace=False).astype(np.int64)
@@ -109,37 +113,106 @@ def test_greedy_global_device_refill_bit_identical(rng, engine, margin):
     t, b, d, k = 120, 200, 96, 6
     blocks, lib, cd, cr = _clustered(rng, t, b, d, k)
     base = native.greedy_global(cd, cr, blocks, lib, t)
-    dev = DeviceRefiller(blocks, lib, defer_events=0)
+    dev = DeviceRefiller(blocks, lib)
     got = native.greedy_global(
         cd, cr, blocks, lib, t, refill_cb=dev, cb_margin=margin, cb_max_batch=dev.max_batch
     )
-    assert dev.n_calls > 0
+    assert dev.n_calls > 0 and dev.n_deferred == 0
     np.testing.assert_array_equal(got[0], base[0])
     np.testing.assert_array_equal(got[1], base[1])
 
 
-def test_device_refiller_defers_then_engages(rng, engine):
+def _k12_case(rng, mask, t=517, b=300, d=24, k=16):
+    """A library of 2t rows (1034 at t = 517: not a multiple of 4, 32 or
+    128), its blocks and candidate lists, and a `used` mask of the named
+    kind."""
+    blocks, lib, cd, cr = _clustered(rng, t, b, d, 6)
+    l = 2 * t
+    if mask == "ties":
+        # copies of 40 rows (and their mirrors) fill the library: the k-th
+        # place falls inside a group of equal distances
+        pal = lib[:t].copy()
+        pal[40:] = pal[np.arange(40, t) % 40]
+        lib = np.concatenate([pal, pal[:, ::-1]])
+        blocks[:40] = pal[:40]
+        dist = np.abs(blocks.astype(np.int32)[:, None] - lib.astype(np.int32)[None]).sum(2)
+        cr = np.argsort(dist, axis=1, kind="stable")[:, :6].astype(np.int32)
+        cd = np.take_along_axis(dist, cr, axis=1).astype(np.int32)
+    used = np.zeros(l, np.uint8)
+    if mask == "all":
+        used[:] = 1
+    elif mask == "few":  # fewer than k rows left
+        used[:] = 1
+        used[rng.choice(l, size=k // 2 - 1, replace=False)] = 0
+    elif mask in ("ties", "ragged"):
+        used[rng.random(l) < 0.5] = 1
+    return blocks, lib, cd, cr, used
+
+
+@pytest.mark.parametrize("m", [1, 3, 64])
+@pytest.mark.parametrize("mask", ["none", "all", "few", "ties", "ragged"])
+def test_k12_contract_against_numpy_refill_and_host_scan(rng, engine, mask, m):
+    """K12's plain version (`masked_refill` on CPU tensors) and the refiller
+    against `make_numpy_refill`: the same (distance, row) pairs in order,
+    padded with (I32_MAX, 0); calls of at most `_K12_MAX_M` blocks count
+    as K12's, larger ones take the stripe. Then the engine with the
+    refiller in batches of at most m blocks against its own host scans:
+    the same rows and distances."""
+    k = 16
+    blocks, lib, cd, cr, used = _k12_case(rng, mask, k=k)
+    ids = rng.choice(len(blocks), size=m, replace=False).astype(np.int64)
+    nd_, nr_ = make_numpy_refill(blocks, lib, k=k)(ids, used.astype(bool))
+    kd = distance.masked_refill(torch.from_numpy(blocks), torch.from_numpy(ids),
+                                torch.from_numpy(lib), torch.from_numpy(used), k).numpy()
+    dev = DeviceRefiller(blocks, lib, k=k)
+    dd, dr = dev(ids, used)
+    for got_d, got_r in ((kd[0], kd[1]), (dd, dr)):
+        for i in range(m):
+            valid = nd_[i] != I32_MAX
+            n = int(valid.sum())
+            assert n == min(k, int((used == 0).sum()))
+            np.testing.assert_array_equal(got_d[i][:n], nd_[i][valid])
+            np.testing.assert_array_equal(got_r[i][:n], nr_[i][valid])
+            assert (got_d[i][n:] == I32_MAX).all() and (got_r[i][n:] == 0).all()
+    if mask == "ties":  # the k-th place cuts a group of equal distances
+        assert any(dd[i][k - 1] == dd[i][k - 2] for i in range(m))
+    if mask != "all":  # an all-used mask is answered on the host
+        assert dev.n_calls == 1 and dev.n_blocks == m and dev.n_rows == int((used == 0).sum())
+        assert dev.n_fused == int(m <= distance._K12_MAX_M)
+    t = len(lib) // 2
+    base = native.greedy_global(cd, cr, blocks, lib, t)
+    dev = DeviceRefiller(blocks, lib)
+    got = native.greedy_global(cd, cr, blocks, lib, t, refill_cb=dev, cb_max_batch=m)
+    assert dev.n_calls > 0 and dev.n_deferred == 0
+    np.testing.assert_array_equal(got[0], base[0])
+    np.testing.assert_array_equal(got[1], base[1])
+
+
+def test_device_refiller_serves_the_first_event_on_the_device(rng, engine):
+    """No event waits on the host scan: a fresh refiller's first call is a
+    K12 call, and an engine run with it makes no host scan."""
     t, b, d, k = 120, 200, 96, 6
     blocks, lib, cd, cr = _clustered(rng, t, b, d, k)
-    base = native.greedy_global(cd, cr, blocks, lib, t)
-    dev = DeviceRefiller(blocks, lib, defer_events=3)
-    got = native.greedy_global(cd, cr, blocks, lib, t, refill_cb=dev, cb_max_batch=dev.max_batch)
-    assert dev.n_deferred == 3 and dev.n_calls > 0
-    np.testing.assert_array_equal(got[0], base[0])
-    cold = DeviceRefiller(blocks, lib, defer_events=1)
-    with pytest.raises(_DeferRefill):
-        cold(np.arange(3, dtype=np.int64), np.zeros(2 * t, np.uint8))
-    cold.warm()
-    dd, _ = cold(np.arange(3, dtype=np.int64), np.zeros(2 * t, np.uint8))
+    dev = DeviceRefiller(blocks, lib)
+    dd, _ = dev(np.arange(3, dtype=np.int64), np.zeros(2 * t, np.uint8))
     assert (dd[:, 0] < I32_MAX).all()
+    assert (dev.n_calls, dev.n_fused, dev.n_deferred) == (1, 1, 0)
+    stats = {}
+    dev = DeviceRefiller(blocks, lib)
+    native.greedy_global(cd, cr, blocks, lib, t, refill_cb=dev,
+                         cb_max_batch=distance._K12_MAX_M, stats=stats)
+    assert stats["refill_host_events"] == 0 and dev.n_fused == dev.n_calls > 0
+    with pytest.raises(ValueError, match="k must be"):
+        DeviceRefiller(blocks, lib, k=distance._K12_MAX_K + 1)
 
 
-def test_refill_callback_failure_raises_and_deferrals_stay_silent(rng, engine, capfd):
+def test_refill_callback_failure_raises_and_deferrals_stay_silent(rng, engine, capfd, monkeypatch):
     """A deferral falls back to the host scan silently; any other callback
     exception stops the engine and is raised, not served by host scans."""
     blocks, lib, cd, cr = _candidates(rng, 60, 30, 12, 3)
     base = native.greedy_global(cd, cr, blocks, lib, 30)
-    dev = DeviceRefiller(blocks, lib, defer_events=10**9)  # always defers
+    monkeypatch.setattr(distance, "DEVICE_LIB_BYTES_MAX", lib.nbytes - 1)
+    dev = DeviceRefiller(blocks, lib)  # oversized: always defers
     got = native.greedy_global(cd, cr, blocks, lib, 30, refill_cb=dev)
     np.testing.assert_array_equal(got[0], base[0])
     assert dev.n_deferred > 0 and dev.n_calls == 0
@@ -171,41 +244,41 @@ def test_exhaustion_short_circuit_never_reaches_the_callback(rng, engine):
 
 
 def test_device_refiller_oversized_library_stays_on_host(rng, engine, monkeypatch):
-    from emosaic_tpu_torch.ops import distance
-
     t, b, d, k = 120, 200, 96, 6
     blocks, lib, cd, cr = _clustered(rng, t, b, d, k)
     base = native.greedy_global(cd, cr, blocks, lib, t)
     monkeypatch.setattr(distance, "DEVICE_LIB_BYTES_MAX", lib.nbytes - 1)
-    dev = DeviceRefiller(blocks, lib, defer_events=0)
-    dev.warm()
-    assert dev._blocks_dev is None
+    dev = DeviceRefiller(blocks, lib)
+    assert dev.oversized
     with pytest.raises(_DeferRefill):
         dev(np.arange(3, dtype=np.int64), np.zeros(2 * t, np.uint8))
     got = native.greedy_global(cd, cr, blocks, lib, t, refill_cb=dev, cb_max_batch=dev.max_batch)
-    assert dev.n_calls == 0
+    assert dev.n_calls == 0 and dev.n_deferred > 1
     np.testing.assert_array_equal(got[0], base[0])
 
 
 def test_cb_k_follows_the_refiller(rng, engine):
     blocks, lib, cd, cr = _candidates(rng, 70, 40, 12, 4)
     base = native.greedy_global(cd, cr, blocks, lib, 40)
-    dev = DeviceRefiller(blocks, lib, k=16, defer_events=0)
+    dev = DeviceRefiller(blocks, lib, k=16)
     got = native.greedy_global(cd, cr, blocks, lib, 40, refill_cb=dev, cb_max_batch=dev.max_batch)
     assert dev.n_calls > 0
     np.testing.assert_array_equal(got[0], base[0])
 
 
 @pytest.mark.parametrize("refiller", [None, "device", "deferring"])
-def test_greedy_global_stats_leave_the_rows_alone(rng, engine, refiller):
+def test_greedy_global_stats_leave_the_rows_alone(rng, engine, refiller, monkeypatch):
     """`stats` gets the engine's host scans and their seconds; the rows and
-    distances are the ones without it."""
+    distances are the ones without it. A deferring refiller is one whose
+    library is past the device budget."""
     t, b, d, k = 120, 200, 96, 6
     blocks, lib, cd, cr = _clustered(rng, t, b, d, k)
     base = native.greedy_global(cd, cr, blocks, lib, t)
     kw = {}
     if refiller is not None:
-        dev = DeviceRefiller(blocks, lib, defer_events=0 if refiller == "device" else 10**9)
+        if refiller == "deferring":
+            monkeypatch.setattr(distance, "DEVICE_LIB_BYTES_MAX", lib.nbytes - 1)
+        dev = DeviceRefiller(blocks, lib)
         kw = dict(refill_cb=dev, cb_max_batch=dev.max_batch)
     stats = {}
     got = native.greedy_global(cd, cr, blocks, lib, t, stats=stats, **kw)

@@ -100,38 +100,49 @@ def test_no_repeat_device_refill_route_bit_identical(rng, monkeypatch):
     monkeypatch.setattr(norepeat, "_EXACT_BUDGET", 0)
     monkeypatch.setattr(norepeat, "_TRUNCATED_K", 4)
     monkeypatch.setenv("EMOSAIC_DEVICE_REFILL", "1")
-    monkeypatch.setenv("EMOSAIC_DEVICE_REFILL_DEFER", "0")
     got = norepeat.render_nto1_no_repeat(src, ts, 4, device="cpu", stack=stack, **quiet)
     if native.available():
         assert got.info["refill_events"] > 0
     _same(got, want, 4)
 
 
-@pytest.mark.parametrize("engine,defer", [("native", "0"), ("native", None), ("python", None)])
-def test_no_repeat_refill_counters(rng, monkeypatch, engine, defer):
-    """Device refills count their calls, blocks and rows and are spans;
-    the engine's host scans (the refiller's deferrals among them) count
-    their events and seconds; the render is the JAX package's either way."""
+@pytest.mark.parametrize(
+    "engine,route", [("native", "0"), ("native", None), ("python", None), ("native", "oversized")]
+)
+def test_no_repeat_refill_counters(rng, monkeypatch, engine, route):
+    """Device refills count their calls, blocks and rows, and the calls K12
+    served, and are spans; the engine's host scans (the refiller's
+    deferrals among them) count their events and seconds; the render is
+    the JAX package's either way. Routes: the default (every device call
+    on K12, none deferred), "0" (`_K12_MAX_M` = 0: every call on K10's
+    stripe), "oversized" (a library past the device budget: every event
+    on the host scan)."""
     pal, src = _clustered_scene(rng, 200, 2, 24, 24)  # 144 blocks, T = 200
     stack = rng.integers(0, 256, size=(200, 4, 4, 3), dtype=np.uint8)
     ts, jts = _sets(pal)
     want = jax_norepeat.render_nto1_no_repeat(src, jts, 4, stack=stack, **quiet)
     monkeypatch.setattr(norepeat, "_EXACT_BUDGET", 0)
-    monkeypatch.setattr(norepeat, "_TRUNCATED_K", 4)
+    # lists of 12: about ten refill events of 1 to 5 blocks (of 4, one of
+    # 119 blocks)
+    monkeypatch.setattr(norepeat, "_TRUNCATED_K", 12)
     monkeypatch.setenv("EMOSAIC_DEVICE_REFILL", "1")
-    if defer is not None:
-        monkeypatch.setenv("EMOSAIC_DEVICE_REFILL_DEFER", defer)
+    if route == "0":
+        monkeypatch.setattr(distance, "_K12_MAX_M", 0)
     if engine == "python":
         monkeypatch.setattr(native, "available", lambda: False)
     elif not native.available():
         pytest.skip("the host C++ compiler could not build the native engine")
+    if route == "oversized":  # 400 library rows of 12 bytes, one byte past the budget
+        monkeypatch.setattr(distance, "DEVICE_LIB_BYTES_MAX", 400 * 12 - 1)
     got = norepeat.render_nto1_no_repeat(src, ts, 4, device="cpu", stack=stack, **quiet)
     info, spans = got.info, got.info["spans"]
     assert set(_NO_REPEAT_STAGES) <= set(spans)
-    if defer == "0":
+    if engine == "native" and route != "oversized":
         assert info["refill_blocks"] >= info["refill_events"] > 0
         assert info["refill_rows"] >= info["refill_events"]
         assert info["refill_host_events"] == 0
+        assert info["refill_events"] > 1
+        assert info["refill_fused_events"] == (0 if route == "0" else info["refill_events"])
         assert spans["norepeat.refill"]["n"] == info["refill_events"]
         # the refills are the engine's children
         assert spans["norepeat.engine"]["self_s"] == pytest.approx(
