@@ -167,6 +167,9 @@ struct Ctx {
   // the host masked scans and their seconds (reported through `stats`)
   int64_t n_refills = 0;
   double refill_secs = 0.0;
+  // candidate entries read: each prefix or refill entry counted once, when
+  // the engine moves past it, taken or skipped as used (through `stats`)
+  int64_t n_entries = 0;
   // lazy per-row library sums for the refill's coarse bound
   std::vector<int64_t> row_sums;
 
@@ -239,6 +242,7 @@ struct Ctx {
           return true;
         }
         ++s.cursor;  // claimed since scoring: skip the whole run
+        ++n_entries;
         continue;
       }
       if (s.ecursor < s.extras.size()) {
@@ -248,6 +252,7 @@ struct Ctx {
           return true;
         }
         ++s.ecursor;
+        ++n_entries;
         continue;
       }
       if (s.dead) return false;  // an earlier refill came back empty
@@ -287,6 +292,7 @@ struct Ctx {
 
   void advance(int64_t b) {
     Stream& s = streams[b];
+    ++n_entries;
     if (s.cursor < K) {
       s.cursor++;
     } else {
@@ -298,7 +304,7 @@ struct Ctx {
 // Shared body of the global-greedy exports: best-match-first priority
 // queue with mirror-pair exclusion (rendering.rs:346-392), tie-broken by
 // block index like the Python engine. `stats`, when not null, receives
-// {host masked scans, their seconds}.
+// {host masked scans, their seconds, candidate entries read}.
 int run_greedy_global(Ctx& ctx, int64_t B, int64_t num_tiles,
                       int32_t* out_row, int32_t* out_dist, double* stats) {
   ctx.used.assign(ctx.L, 0);
@@ -344,6 +350,7 @@ int run_greedy_global(Ctx& ctx, int64_t B, int64_t num_tiles,
   if (stats != nullptr) {
     stats[0] = (double)ctx.n_refills;
     stats[1] = ctx.refill_secs;
+    stats[2] = (double)ctx.n_entries;
   }
   return 0;
 }
@@ -387,7 +394,7 @@ int emosaic_greedy_sequence(const int32_t* order, const int32_t* cand_d,
 
 // Global greedy no-repeat (reference --no-repeat): best-match-first
 // priority queue, mirror-pair exclusion. Ties by block index (matches the
-// Python engine). `stats` is null or double[2] (see run_greedy_global).
+// Python engine). `stats` is null or double[3] (see run_greedy_global).
 // Returns 0 on success.
 int emosaic_greedy_global(const int32_t* cand_d, const int32_t* cand_r,
                           int64_t B, int64_t K, const uint8_t* blocks,

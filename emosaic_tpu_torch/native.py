@@ -105,7 +105,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i32p, i32p, i32p, i64, i64, u8p, u8p, i64, i64, i32p, i32p
     ]
     lib.emosaic_greedy_sequence.restype = ctypes.c_int
-    # the stats out-array: double[2] or None
+    # the stats out-array: double[3] or None
     f64p = ctypes.POINTER(ctypes.c_double)
     lib.emosaic_greedy_global.argtypes = [
         i32p, i32p, i64, i64, u8p, u8p, i64, i64, i64, i32p, i32p, f64p
@@ -171,9 +171,13 @@ def greedy_global(
     ops/distance.DeviceRefiller). Output is bit-identical with or without
     the callback. An exception with `expected_fallback` set sends that
     event to the host scan; any other exception stops the engine and is
-    raised here. `stats`, when given, is filled with the engine's host
-    masked scans (`refill_host_events`) and their seconds
-    (`refill_host_s`).
+    raised here. `stats`, when given, is filled from the engine's three
+    stats slots: its host masked scans (`refill_host_events`), their
+    seconds (`refill_host_s`), and the candidate entries it read
+    (`engine_entries`): each entry of the lists and of the refills counted
+    once, when the engine moves past it, taken or skipped as used. At
+    least one per assigned block; its mean per block is how deep the
+    greedy goes into the lists.
     """
     nl = load()
     b, k = cand_d.shape
@@ -183,7 +187,7 @@ def greedy_global(
     lib = _c(lib, np.uint8)
     out_row = np.empty(b, dtype=np.int32)
     out_dist = np.empty(b, dtype=np.int32)
-    out_stats = (ctypes.c_double * 2)() if stats is not None else None
+    out_stats = (ctypes.c_double * 3)() if stats is not None else None
     if refill_cb is None:
         rc = nl.emosaic_greedy_global(
             cand_d, cand_r, b, k, blocks, lib,
@@ -223,7 +227,8 @@ def greedy_global(
     if rc != 0:
         raise RuntimeError(f"emosaic_greedy_global rc={rc}")
     if stats is not None:
-        stats.update(refill_host_events=int(out_stats[0]), refill_host_s=out_stats[1])
+        stats.update(refill_host_events=int(out_stats[0]), refill_host_s=out_stats[1],
+                     engine_entries=int(out_stats[2]))
     return out_row, out_dist
 
 

@@ -73,8 +73,10 @@ def render_nto1_no_repeat(
     """Render the global-greedy no-repeat mosaic on `device`.
 
     The outcome's `info` holds the scorer used and its statistics (route,
-    certified and fallback rows), the assignment engine and its refill
-    counters, the seconds of scoring and assignment, and the render's
+    certified and fallback rows; the exact-full route's pairs and matrix
+    bytes), the assignment engine with its refill counters and the
+    candidate entries the native engine read (`engine_entries`), the
+    seconds of scoring and assignment, and the render's
     stage spans (`monitor.span`). `mesh` (`parallel.make_mesh`) shards the
     exact scoring over it."""
     if scorer not in ("exact", "hybrid"):
@@ -112,9 +114,13 @@ def render_nto1_no_repeat(
                 # device, a stable argsort on the host (a device top-k at k = L is
                 # far slower)
                 scorer_used = "exact-full"
-                dist = l1_dist_matrix(blocks, lib)
-                cr = np.argsort(dist, axis=1, kind="stable").astype(np.int32)
-                cd = np.take_along_axis(dist, cr, axis=1).astype(np.int32)
+                info["scoring"] = {"route": "exact-full", "pairs": b * l,
+                                   "matrix_bytes": 4 * b * l}
+                with span("scoring.dense"):  # K10's stripes and the copy to the host
+                    dist = l1_dist_matrix(blocks, lib)
+                with span("scoring.sort"):
+                    cr = np.argsort(dist, axis=1, kind="stable").astype(np.int32)
+                    cd = np.take_along_axis(dist, cr, axis=1).astype(np.int32)
             else:
                 # exact truncated lists from the adaptive certified scorer;
                 # concentrated data routes inside to the two-level scorer, with

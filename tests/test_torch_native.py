@@ -284,9 +284,11 @@ def test_greedy_global_stats_leave_the_rows_alone(rng, engine, refiller, monkeyp
     got = native.greedy_global(cd, cr, blocks, lib, t, stats=stats, **kw)
     np.testing.assert_array_equal(got[0], base[0])
     np.testing.assert_array_equal(got[1], base[1])
-    assert set(stats) == {"refill_host_events", "refill_host_s"}
+    assert set(stats) == {"refill_host_events", "refill_host_s", "engine_entries"}
+    assert stats["engine_entries"] >= np.count_nonzero(got[0] >= 0)
     if refiller == "device":
-        assert stats == {"refill_host_events": 0, "refill_host_s": 0.0} and dev.n_calls > 0
+        assert stats["refill_host_events"] == 0 and stats["refill_host_s"] == 0.0
+        assert dev.n_calls > 0
     else:
         assert stats["refill_host_events"] > 0 and stats["refill_host_s"] > 0
     if refiller == "deferring":
