@@ -7,7 +7,7 @@ Run from the root of a checkout. Phases, each printing its own lines:
 
   A  environment: torch/CUDA versions, the card's name and power limit,
      nvcc, and a GPU, or it stops;
-  B  build: the fourteen CUDA kernels from the eleven sources of
+  B  build: the fifteen CUDA kernels from the twelve sources of
      `emosaic_tpu_torch/csrc/` (one nvcc per source, started together) and
      the native C++ greedy engine;
   C  each kernel against its plain torch version on the card, exactly:
@@ -32,7 +32,13 @@ Run from the root of a checkout. Phases, each printing its own lines:
      rows of 24..4112 bytes, masks with none, half and all rows used, k
      1..256; timed at M 1, 4, 64, the crossover and twice it against the
      gather + K10 stripe + `torch.topk` chain it replaces, with the
-     crossover that run measures) at
+     crossover that run measures) and K13 (the exact-full route's per-row
+     sort: at the `service_m16` cell's matrix, the route's longest rows
+     (u64 keys, chunks merged through device memory), odd row lengths,
+     one-entry rows, tie storms and keys of 32 and 33 bits
+     (`probes/k13.py`); timed at the cell's shape and at the longest rows
+     against its bound and `torch.sort` of the same keys, with the host
+     sort it replaces) at
      test and main-path shapes, K3 and K4
      also past 4 GiB; K1 also on tie storms, at D = 49152 and 65800 and across D
      (12..3072 at B=4096, L=200000, in T byte pairs/s), K3 on both of its
@@ -119,7 +125,7 @@ Run from the root of a checkout. Phases, each printing its own lines:
      and K2, in its worst case K10's two entries, in its full
      consumption and its refilling render K12; H: K3, K2 and K11's
      two entries; L: K4,
-     K9, K5, K6, K7 and K8; S: K1, K2 and K10's stripe; P: K1, K2, K3, K9
+     K9, K5, K6, K7 and K8; S: K1, K2, K10's stripe and K13; P: K1, K2, K3, K9
      and K10's top-cap), which must be > 0.
 
 Phases run in the order A, B, C, D, N, L, H, E, S, P (P's CLI runs reuse
@@ -134,7 +140,8 @@ run's indices reach) over 3.35 TB/s, and its integer operations (an
 absolute difference and an add per byte pair, for K11 a multiply and an
 add; none counted for a selection) over 1979 TOP/s, the H100 SXM's
 published HBM rate and int8
-peak at its 700 W limit. K1, K3, K9, K10 and K12 also carry `ceiling_ms`: exact L1
+peak at its 700 W limit; for K13, the matrix read once and its sorted
+lists written once. K1, K3, K9, K10 and K12 also carry `ceiling_ms`: exact L1
 has no tensor-core form at a useful cost, so the least time their
 CUDA-core work can take is the byte pairs over the VABSDIFF4 rate (SMs x
 64 lanes x 4 byte pairs x the maximum SM clock, or what a pure VABSDIFF4
@@ -1069,6 +1076,29 @@ def phase_c_k12(torch, dev, card, rate) -> dict:
     return res
 
 
+def phase_c_k13(torch, dev, card) -> dict:
+    """K13 (`row_sort`) against its plain version, exactly, at the cases of
+    `probes/k13.py` `exact_checks`; then timed there (`timings`) at the
+    `service_m16` cell's [4096, 8192] matrix and at the route's longest
+    rows [3051, 65534]: the kernel beside its bound, its plain version and
+    `torch.sort` of the same packed keys (the yardstick), and at the cell's
+    shape the whole `sorted_lists` call on the host's clock against the
+    host sort it replaces."""
+    from emosaic_tpu_torch.ops import distance
+    from emosaic_tpu_torch.probes import k13 as probe
+
+    exact = probe.exact_checks(torch, dev, distance)
+    t = probe.timings(torch, dev, distance, card)
+    cell, edge = t["cell"], t["edge"]
+    return {"ms": cell["ms"], "bound_ms": cell["bound_ms"], "bound_by": "bytes",
+            "plain_ms": cell["plain_ms"], "library_ms": cell["library_ms"],
+            "shape": cell["shape"], "yardstick": cell["library"],
+            "ms_long_rows": edge["ms"], "bound_ms_long_rows": edge["bound_ms"],
+            "plain_ms_long_rows": edge["plain_ms"], "library_ms_long_rows": edge["library_ms"],
+            "shape_long_rows": edge["shape"], "sorted_lists_s": cell["sorted_lists_s"],
+            "copy_s": cell["copy_s"], "host_sort_s": cell["host_sort_s"], "exact": exact}
+
+
 def phase_c_k11(torch, gen, dev, card, mode4=(262144, 200000, 48), flag=(4096, 65534, 3072),
                 rows_t=16384) -> tuple[dict, dict]:
     """K11's two entry points against their plain versions, bit for bit:
@@ -1433,7 +1463,8 @@ def _no_fallback(lab: bool = False):
                  (distance, "_l1_rows_ref"), (distance, "_seg_topcap_ref"),
                  (distance, "_coarse_topcap_ref"), (distance, "_l1_block_ref"),
                  (distance, "_l1_topcap_ref"), (distance, "_l2_argmin_ref"),
-                 (distance, "_l2_topcap_ref"), (distance, "_l2_dense")]
+                 (distance, "_l2_topcap_ref"), (distance, "_l2_dense"),
+                 (distance, "_row_sort_ref")]
 
     @contextlib.contextmanager
     def ctx():
@@ -3039,6 +3070,7 @@ def main() -> int:
         k10s, k10t = phase_c_k10(torch, gen, dev, card, rate)
         k11a, k11t = phase_c_k11(torch, gen, dev, card)
         k12 = phase_c_k12(torch, dev, card, rate)
+        k13 = phase_c_k13(torch, dev, card)
         k5 = phase_c_k5(torch, gen, dev, card)
         k6, k7 = phase_c_k6_k7(torch, gen, dev, card)
         k8 = phase_c_k8(torch, gen, dev, card)
@@ -3076,7 +3108,8 @@ def main() -> int:
                                     ("N's worst case", launches_w, ("l1_topcap", "l1_stripe")),
                                     ("H", launches_h, ("l1_rows", "compose", "l2_argmin",
                                                        "l2_topcap")),
-                                    ("S", launches_s, ("l1_argmin", "compose", "l1_stripe")),
+                                    ("S", launches_s, ("l1_argmin", "compose", "l1_stripe",
+                                                       "row_sort")),
                                     ("P", launches_p, ("l1_argmin", "compose", "l1_rows",
                                                        "coarse_topcap", "l1_topcap")),
                                     ("L", launches_l, ("seg_topcap", "coarse_topcap",
@@ -3104,6 +3137,7 @@ def main() -> int:
         (KERNELS[11], k11a, "emosaic_tpu/ops/distance.py:909", launches_h),
         (KERNELS[12], k11t, "emosaic_tpu/ops/distance.py:706", launches_h),
         (KERNELS[13], k12, "none", n["launches_refill"]),
+        (KERNELS[14], k13, "none", launches_s),
     ]:
         rows.append({
             "name": k.name, "route": "cuda",
@@ -3132,6 +3166,9 @@ def main() -> int:
                     refill_render_s=n["refill_render_s"],
                     refill_render_host_s=n["refill_render_host_s"],
                     refill_render_calls=n["refill_calls"], refill_render_fused=n["refill_fused"])
+    rows[14]["also_replaces"] = ("none: the exact-full route's host sort (stable np.argsort, "
+                                 "take_along_axis, int32 casts; the JAX package's "
+                                 "emosaic_tpu/render/norepeat.py:121-123)")
     rows[1]["also_replaces"] = "emosaic_tpu/ops/composite.py:82"
     rows[2]["also_replaces"] = "tools/tpu_r19_flatdma.py:48"
     rows[2]["launches_h"] = launches_h["l1_rows"]

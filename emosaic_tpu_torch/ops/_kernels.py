@@ -201,9 +201,16 @@ MASKED_REFILL = CudaKernel(
     "emosaic_masked_refill",
     [_I, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P, _P, _L, _P, _P],
 )
+#: csrc/row_sort.cu, the exact-full route's per-row sort (see ops/distance.py
+#: `row_sort`)
+ROW_SORT = CudaKernel(
+    "row_sort",
+    "emosaic_row_sort",
+    [_I, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _P],
+)
 KERNELS = (L1_ARGMIN, COMPOSE, L1_ROWS, SEG_TOPCAP, FLOOR_WRITE, COMPOSE_BULK,
            COMPOSE_BULK2, BAND_TRANSPOSE, COARSE_TOPCAP, L1_STRIPE, L1_TOPCAP,
-           L2_ARGMIN, L2_TOPCAP, MASKED_REFILL)
+           L2_ARGMIN, L2_TOPCAP, MASKED_REFILL, ROW_SORT)
 
 
 def build_all(kernels=KERNELS, force: bool = False) -> dict:

@@ -42,6 +42,11 @@ The torch counterpart of `emosaic_tpu/ops/distance.py`.
   `_masked_refill_ref`): the resident library scored under the engine's
   mask and each block's k least (distance, row) pairs selected in the
   same call; a larger call gathers the unused rows for K10's stripe.
+- `row_sort`, `sorted_lists`: every row of a dense distance matrix sorted
+  on the packed (distance, column) key, the exact-full no-repeat route's
+  full candidate lists. On the card it launches the hand-written kernel
+  K13 `csrc/row_sort.cu`; on a CPU tensor it runs `_row_sort_ref`, its
+  plain torch version.
 
 Distances are exact int32. Ties go to the lowest library row: every top-k
 selection sorts on a packed int64 key (distance << 32) | row, because
@@ -90,6 +95,7 @@ from emosaic_tpu_torch.ops._kernels import (
     L2_ARGMIN,
     L2_TOPCAP,
     MASKED_REFILL,
+    ROW_SORT,
     SEG_TOPCAP,
 )
 
@@ -616,6 +622,136 @@ def l1_dist_matrix(blocks, lib, *, device=None) -> np.ndarray:
     for b0 in range(0, b, bc):
         out[b0 : b0 + bc] = _host(l1_block(x[b0 : b0 + bc], t))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Full sorted lists on the card (K13)
+#
+# The exact-full no-repeat route sorts every row of the dense [B, L] matrix
+# on the packed key (dist << bits_c) | col, bits_c = bitlen(L - 1): unique
+# keys whose order is the (distance, lowest column) order. The key width
+# follows the shape: u32 where bitlen(dmax) + bits_c <= 32, else u64.
+# ---------------------------------------------------------------------------
+
+#: K13 (`csrc/row_sort.cu`): warps a block, the widest digit of a radix
+#: pass, the shared memory a block may take, and the keys a block sorts at
+#: once on the long-row path (rows whose keys, twice over, and their u16
+#: ranks pass that shared memory)
+_K13_WARPS = 16
+_K13_MAX_WIDTH = 8
+_K13_SMEM_MAX = 227 * 1024
+_K13_CHUNK = 4096
+#: chunks a row at most (the long-row path's grid.y)
+_K13_MAX_CHUNKS = 65535
+
+
+def _k13_smem(cap: int, key_bytes: int, width: int) -> int:
+    """Shared memory of a K13 block sorting `cap` keys at once: two key
+    buffers, their u16 ranks, the (digit, warp) counts and the scan's warp
+    sums."""
+    return 2 * cap * key_bytes + 2 * cap + 4 * _K13_WARPS * ((1 << width) + 1)
+
+
+def _k13_plan(n: int, dmax: int) -> tuple[int, int, int, int, int, int]:
+    """K13's launch for rows of n >= 1 entries in [0, dmax]: (key bytes, 4
+    where bitlen(dmax) + bits_c <= 32, else 8; bits_c = bitlen(n - 1), the
+    column bits; radix passes and their digit width, as few passes of at
+    most `_K13_MAX_WIDTH` bits as cover bitlen(dmax), at least one; the
+    chunk, 0 where a block holds a whole row, else `_K13_CHUNK`; the shared
+    memory a block)."""
+    bits_c = (n - 1).bit_length()
+    bits_d = dmax.bit_length()
+    key_bytes = 4 if bits_d + bits_c <= 32 else 8
+    passes = max(1, -(-bits_d // _K13_MAX_WIDTH))
+    width = max(1, -(-bits_d // passes))
+    smem = _k13_smem(-(-n // 8) * 8, key_bytes, width)
+    if smem <= _K13_SMEM_MAX:
+        return key_bytes, bits_c, passes, width, 0, smem
+    return key_bytes, bits_c, passes, width, _K13_CHUNK, _k13_smem(_K13_CHUNK, key_bytes, width)
+
+
+def _k13_work(rows: int, n: int, plan) -> int:
+    """Bytes of K13's scratch: on the long-row path two [rows, n] key
+    buffers and each row's counts of (digit, chunk), else none."""
+    key_bytes, _, _, width, chunk, _ = plan
+    if not chunk:
+        return 0
+    return 2 * rows * n * key_bytes + 4 * rows * (1 << width) * -(-n // chunk)
+
+
+def row_sort(dist: torch.Tensor, dmax: int) -> torch.Tensor:
+    """Every row of the int32 [B, L] matrix `dist`, whose entries lie in
+    [0, dmax], in ascending (distance, column) order, the order of
+    `np.argsort(kind="stable")`, on dist's device: where the plan's keys
+    are 4 bytes, the keys (dist << bits_c) | col themselves, int32 [B, L]
+    holding their u32 bits; else int32 [2, B, L], the distances, then the
+    columns (`_k13_plan`; `sorted_lists` unpacks either).
+
+    On the card it launches the hand-written kernel K13 `csrc/row_sort.cu`;
+    on a CPU tensor it runs `_row_sort_ref`, its plain torch version."""
+    if dist.dim() != 2 or dist.dtype != torch.int32:
+        raise ValueError(f"row_sort takes an int32 [B, L] matrix, got {dist.dtype} "
+                         f"{tuple(dist.shape)}")
+    if not 0 <= dmax < 2**31:
+        raise ValueError(f"dmax must be in [0, 2^31), got {dmax}")
+    if dist.device.type == "cpu":
+        return _row_sort_ref(dist, dmax)
+    if dist.device.type != "cuda":
+        raise ValueError(f"unsupported device {dist.device}")
+    if not dist.is_contiguous():
+        raise ValueError("row_sort takes a contiguous matrix")
+    b, n = dist.shape
+    if -(-n // _K13_CHUNK) > _K13_MAX_CHUNKS:
+        raise ValueError(f"K13 takes rows of at most {_K13_MAX_CHUNKS * _K13_CHUNK} entries")
+    plan = _k13_plan(max(n, 1), dmax)
+    key_bytes, bits_c, passes, width, chunk, smem = plan
+    out = torch.empty((b, n) if key_bytes == 4 else (2, b, n), dtype=torch.int32,
+                      device=dist.device)
+    if b == 0 or n == 0:
+        return out
+    work = torch.empty(_k13_work(b, n, plan), dtype=torch.uint8, device=dist.device)
+    ROW_SORT.launch(
+        dist.device.index, dist.data_ptr(), out.data_ptr(),
+        out[1].data_ptr() if key_bytes == 8 else None,
+        work.data_ptr() if chunk else None, b, n, key_bytes, bits_c, passes, width, chunk,
+        smem, torch.cuda.current_stream(dist.device).cuda_stream,
+    )
+    return out
+
+
+def _row_sort_ref(dist: torch.Tensor, dmax: int) -> torch.Tensor:
+    """Plain torch version of K13 (`row_sort`), on any device: the packed
+    int64 keys of each row sorted, laid out as K13 writes them."""
+    b, n = dist.shape
+    key_bytes, bits_c = _k13_plan(max(n, 1), dmax)[:2]
+    cols = torch.arange(n, dtype=torch.int64, device=dist.device)
+    keys = torch.sort((dist.to(torch.int64) << bits_c) | cols, dim=1).values
+    if key_bytes == 4:
+        return (keys - (keys >> 31 << 32)).to(torch.int32)  # the u32 keys' bits
+    return torch.stack(((keys >> bits_c).to(torch.int32),
+                        (keys & ((1 << bits_c) - 1)).to(torch.int32)))
+
+
+def sorted_lists(dist: torch.Tensor, dmax: int, *,
+                 stats: dict | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """The full sorted candidate lists of the matrix `dist` (int32 [B, L],
+    entries in [0, dmax]) as host int32 arrays (dists [B, L], rows [B, L]):
+    `row_sort`, one copy of its output to the host, and where the keys are
+    4 bytes their split into distances and rows (two numpy passes; the rows
+    overwrite the keys, so only the distances take fresh host pages).
+    `stats`, when given, gets the sort that ran (`sort`: "k13" on the card,
+    "plain" on the CPU) and its key bytes (`key_bytes`)."""
+    key_bytes, bits_c = _k13_plan(max(dist.shape[1], 1), dmax)[:2]
+    if stats is not None:
+        stats.update(sort="k13" if dist.is_cuda else "plain", key_bytes=key_bytes)
+    out = _host(row_sort(dist, dmax))
+    if out.ndim == 3:
+        return out[0], out[1]
+    keys = out.view(np.uint32)
+    cd = np.empty(keys.shape, np.int32)
+    np.right_shift(keys, np.uint32(bits_c), out=cd.view(np.uint32))
+    np.bitwise_and(keys, np.uint32((1 << bits_c) - 1), out=keys)
+    return cd, out
 
 
 #: dense-matrix + host-argpartition path while B * L stays under this

@@ -4,7 +4,8 @@ The torch counterpart of `emosaic_tpu/render/norepeat.py`. Two phases:
 1. Scoring: the reference fetches 100 000 NN per block (rendering.rs:
    307-321), which under its 32 767-tile cap is the full sorted list. Here
    the device scorers produce the lists in one batch: the full sorted list
-   while B * L is affordable (`exact-full`), else an exact 512-entry prefix
+   while B * L is affordable (`exact-full`: K10's dense matrix, each row
+   sorted on the card by kernel K13), else an exact 512-entry prefix
    from the adaptive certified scorer (`adaptive-exact`, whose shortlist
    rescore is kernel K3) with exact masked refills during assignment.
    `scorer="hybrid"` takes the approximate L2-prefilter lists (`hybrid`,
@@ -33,9 +34,10 @@ from emosaic_tpu_torch.monitor import record, span
 from emosaic_tpu_torch.ops import distance as _distance
 from emosaic_tpu_torch.ops.distance import (
     DeviceRefiller,
-    l1_dist_matrix,
+    l1_block,
     l1_topk_adaptive,
     l1_topk_hybrid,
+    sorted_lists,
 )
 from emosaic_tpu_torch.render.greedy import greedy_global_assign, make_numpy_refill
 from emosaic_tpu_torch.render.matched import (
@@ -73,7 +75,8 @@ def render_nto1_no_repeat(
     """Render the global-greedy no-repeat mosaic on `device`.
 
     The outcome's `info` holds the scorer used and its statistics (route,
-    certified and fallback rows; the exact-full route's pairs and matrix
+    certified and fallback rows; the exact-full route's pairs, matrix
+    bytes, its sort, `k13` on the card or `plain`, and the sort's key
     bytes), the assignment engine with its refill counters and the
     candidate entries the native engine read (`engine_entries`), the
     seconds of scoring and assignment, and the render's
@@ -110,17 +113,20 @@ def render_nto1_no_repeat(
                 info["scoring"] = {}
                 cd, cr = sharded_l1_topk_adaptive(blocks, lib, k, mesh, stats=info["scoring"])
             elif b * l <= _EXACT_BUDGET and lib.numel() <= _distance.DEVICE_LIB_BYTES_MAX:
-                # the full sorted candidate list per block: the dense matrix on the
-                # device, a stable argsort on the host (a device top-k at k = L is
-                # far slower)
+                # the full sorted candidate list per block: K10's dense matrix
+                # stays on the device (4 * B * L bytes, inside `l1_block`'s stripe
+                # budget) and K13 sorts every row there on packed (distance, row)
+                # keys; only the sorted lists come to the host. Rows are sorted in
+                # full: where every tile is used, a fifth of the blocks read past
+                # their 1024th entry, so a prefix would send them back to refill
                 scorer_used = "exact-full"
                 info["scoring"] = {"route": "exact-full", "pairs": b * l,
                                    "matrix_bytes": 4 * b * l}
-                with span("scoring.dense"):  # K10's stripes and the copy to the host
-                    dist = l1_dist_matrix(blocks, lib)
-                with span("scoring.sort"):
-                    cr = np.argsort(dist, axis=1, kind="stable").astype(np.int32)
-                    cd = np.take_along_axis(dist, cr, axis=1).astype(np.int32)
+                with span("scoring.dense"):  # K10's stripes, the matrix left on the card
+                    dist = l1_block(blocks, lib)
+                with span("scoring.sort"):  # K13, the lists' copy to the host, the split
+                    cd, cr = sorted_lists(dist, 255 * blocks.shape[1], stats=info["scoring"])
+                del dist
             else:
                 # exact truncated lists from the adaptive certified scorer;
                 # concentrated data routes inside to the two-level scorer, with

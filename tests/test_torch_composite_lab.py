@@ -339,5 +339,5 @@ def test_registry_shares_one_source_between_k6_and_k7():
     assert COMPOSE_BULK.name != COMPOSE_BULK2.name
     assert {k.source.name for k in (FLOOR_WRITE, BAND_TRANSPOSE)} == {
         "floor_write.cu", "band_transpose.cu"}
-    assert len(KERNELS) == 14 and len({k.source_name for k in KERNELS}) == 11
-    assert len({k.name for k in KERNELS}) == 14
+    assert len(KERNELS) == 15 and len({k.source_name for k in KERNELS}) == 12
+    assert len({k.name for k in KERNELS}) == 15

@@ -1,8 +1,8 @@
 """The no-repeat render's exact-full route (`render_nto1_no_repeat` while
-B * L fits `_EXACT_BUDGET`: the dense matrix, its stable host sort, the
-engine on full lists) against the benchmark's plain reference
-(`bench_torch/reference.py`, the global greedy and the composite), items
-and image bytes exactly, on the CPU; its spans and counters, the
+B * L fits `_EXACT_BUDGET`: the dense matrix, each row sorted (K13 on the
+card, its plain version here), the engine on full lists) against the
+benchmark's plain reference (`bench_torch/reference.py`, the global greedy
+and the composite), items and image bytes exactly, on the CPU; its spans and counters, the
 benchmark's readers of them, and the `service_m16` configuration's hold on
 the route.
 """
@@ -84,8 +84,11 @@ def test_exact_full_spans_and_counters(monkeypatch, engine):
     pal, src, stack = _scene(3, 16, "full", t=256, side=16)
     got = _render(pal, src, stack)
     info, spans = got.info, got.info["spans"]
-    b, l = got.items.size, 2 * len(pal)
-    assert info["scoring"] == {"route": "exact-full", "pairs": b * l, "matrix_bytes": 4 * b * l}
+    b, l, d = got.items.size, 2 * len(pal), pal[0].size
+    key_bytes = 4 if (255 * d).bit_length() + (l - 1).bit_length() <= 32 else 8
+    assert key_bytes == 4  # 18 distance bits (D = 768) and 9 row bits (L = 512)
+    assert info["scoring"] == {"route": "exact-full", "pairs": b * l, "matrix_bytes": 4 * b * l,
+                               "sort": "plain", "key_bytes": key_bytes}
     parts = spans["scoring.dense"]["s"] + spans["scoring.sort"]["s"]
     assert spans["scoring.dense"]["n"] == spans["scoring.sort"]["n"] == 1
     assert spans["norepeat.scoring"]["self_s"] == pytest.approx(

@@ -1,4 +1,4 @@
-"""K1 to K12 against their plain torch versions on an NVIDIA GPU, and the
+"""K1 to K13 against their plain torch versions on an NVIDIA GPU, and the
 sharded routes of `parallel/` on a virtual mesh of the one card.
 
 A CUDA kernel has no CPU mode, so these tests are marked `cuda` and skip
@@ -27,6 +27,7 @@ from emosaic_tpu_torch.ops._kernels import (
     L2_ARGMIN,
     L2_TOPCAP,
     MASKED_REFILL,
+    ROW_SORT,
     SEG_TOPCAP,
 )
 
@@ -859,3 +860,92 @@ def test_k12_matches_plain_at_edges(cuda, l, d):
         one = torch.ones(l, dtype=torch.uint8, device=cuda)
         one[l // 2] = 0
         _k12_check(blocks, ids, lib, one, 256)
+
+
+def _k13_check(dist, dmax):
+    """K13 against its plain version on the card, exactly, and the host
+    lists `sorted_lists` makes of it against the stable numpy argsort."""
+    before = ROW_SORT.launches
+    got = distance.row_sort(dist, dmax)
+    assert ROW_SORT.launches == before + 1
+    torch.cuda.synchronize()
+    want = distance._row_sort_ref(dist, dmax)
+    assert got.shape == want.shape and torch.equal(got, want)
+    return distance._k13_plan(dist.shape[1], dmax)
+
+
+@pytest.mark.parametrize(
+    "b,l,d,key_bytes,chunked",
+    [(4096, 8192, 768, 4, False), (3051, 65534, 3072, 8, True), (300, 8191, 768, 4, False),
+     (200, 12345, 3072, 8, False), (40, 12345, 48, 4, False), (30, 30001, 48, 4, True),
+     (7, 20000, 3072, 8, True), (9, 1, 768, 4, False), (33, 5, 3, 4, False)],
+)
+def test_k13_matches_plain(cuda, b, l, d, key_bytes, chunked):
+    """K13 on K10's distances of random rows: the `service_m16` cell's
+    matrix (u32 keys, a row a block), the exact-full route's longest rows
+    (L = 65534 at D = 3072 and its largest B: u64 keys, chunks merged
+    through device memory), odd row lengths on both paths and both key
+    widths (12345 u64 keys next to a block's shared-memory limit), one-entry
+    rows."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(b + l + d)
+    x = torch.randint(0, 256, (b, d), dtype=torch.uint8, device=cuda, generator=gen)
+    t = torch.randint(0, 256, (l, d), dtype=torch.uint8, device=cuda, generator=gen)
+    dist = distance.l1_block(x, t)
+    plan = _k13_check(dist, 255 * d)
+    assert plan[0] == key_bytes and bool(plan[4]) == chunked
+    if b * l <= 10**6:
+        cd, cr = distance.sorted_lists(dist, 255 * d)
+        m = dist.cpu().numpy()
+        order = np.argsort(m, axis=1, kind="stable")
+        np.testing.assert_array_equal(cr, order)
+        np.testing.assert_array_equal(cd, np.take_along_axis(m, order, axis=1))
+
+
+@pytest.mark.parametrize("l,d", [(8192, 768), (12345, 3072), (30001, 48), (20000, 3072)])
+@pytest.mark.parametrize("values", [(0, 0), (0, 2), (7, 9)])
+def test_k13_tie_storms(cuda, l, d, values):
+    """Rows of one value and of three: every digit's keys stay in column
+    order, on both paths and both key widths."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(l + values[1])
+    lo, hi = values
+    dist = torch.randint(lo, hi + 1, (16, l), dtype=torch.int32, device=cuda, generator=gen)
+    _k13_check(dist, 255 * d)
+
+
+@pytest.mark.parametrize("dmax,key_bytes", [((1 << 19) - 1, 4), (1 << 19, 8)])
+def test_k13_key_width_boundary(cuda, dmax, key_bytes):
+    """8192 columns (13 bits) and distances of 19 bits, the largest set:
+    32-bit keys with the top bit set; one more distance bit: 64-bit keys."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(dmax)
+    dist = torch.randint(dmax - 3, dmax + 1, (64, 8192), dtype=torch.int32, device=cuda,
+                         generator=gen)
+    assert _k13_check(dist, dmax)[0] == key_bytes
+
+
+def test_k13_serves_the_exact_full_render(cuda):
+    """One exact-full render on the card launches K13 once, says so in its
+    counters, and gives the CPU render's items and image."""
+    from emosaic_tpu_torch.render import norepeat
+    from emosaic_tpu_torch.tiles.tileset import TileSet
+
+    rng = np.random.default_rng(13)
+    t, dim, side, ts = 256, 16, 16, 8
+    bases = rng.integers(0, 256, size=(t, 1, 3))
+    pal = np.clip(bases + rng.integers(-10, 11, size=(t, dim * dim, 3)), 0, 255).astype(np.uint8)
+    src = rng.integers(0, 256, size=(side * dim, side * dim, 3), dtype=np.uint8)
+    stack = rng.integers(0, 256, size=(t, ts, ts, 3), dtype=np.uint8)
+    tiles = TileSet.from_arrays(pal, [f"tiles/t{i}.jpg" for i in range(t)])
+    quiet = dict(stack=stack, log=lambda *a: None)
+    before = ROW_SORT.launches
+    got = norepeat.render_nto1_no_repeat(src, tiles, ts, device="cuda", **quiet)
+    torch.cuda.synchronize()
+    assert ROW_SORT.launches == before + 1
+    assert got.info["scorer"] == "exact-full"
+    assert got.info["scoring"]["sort"] == "k13" and got.info["scoring"]["key_bytes"] == 4
+    want = norepeat.render_nto1_no_repeat(src, tiles, ts, device="cpu", **quiet)
+    assert want.info["scoring"]["sort"] == "plain"
+    np.testing.assert_array_equal(got.items, want.items)
+    np.testing.assert_array_equal(np.asarray(got.image), np.asarray(want.image))
