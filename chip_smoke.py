@@ -1039,17 +1039,17 @@ def phase_c_k12(torch, dev, card, rate) -> dict:
     and the VABSDIFF4 ceiling. The crossover it reports is the one this
     run measures: the largest of those Ms up to which a call on K12 beats
     one on the stripe's route."""
-    from emosaic_tpu_torch.ops import distance
+    from emosaic_tpu_torch.ops import refill
     from emosaic_tpu_torch.probes import k12 as probe
 
-    probe.exact_checks(torch, dev, distance)
-    cap = distance._K12_MAX_M
-    swept = probe.sweep(torch, dev, distance, sorted({1, 4, 64, cap, min(2 * cap, 4096)}))
+    probe.exact_checks(torch, dev, refill)
+    cap = refill._K12_MAX_M
+    swept = probe.sweep(torch, dev, refill, sorted({1, 4, 64, cap, min(2 * cap, 4096)}))
     rows = {r["m"]: r for r in swept}
     crossover = probe.measured_crossover(swept)
     _, lib, blocks, used = probe.scene(torch, dev)
     ids = torch.arange(1, device=dev)
-    plain_ms = cuda_ms(torch, lambda: distance._masked_refill_ref(blocks, ids, lib, used, 256),
+    plain_ms = cuda_ms(torch, lambda: refill._masked_refill_ref(blocks, ids, lib, used, 256),
                        reps=2)
     del lib, blocks, used
     torch.cuda.empty_cache()
@@ -1841,7 +1841,7 @@ def flagship_scene(torch, gen, dev, t=32767, side=4096):
 
 def phase_n(torch, gen, dev, card, t=32767, side=4096, t2=16384) -> dict:
     from emosaic_tpu_torch import native
-    from emosaic_tpu_torch.ops import distance
+    from emosaic_tpu_torch.ops import distance, refill
     from emosaic_tpu_torch.ops._kernels import KERNELS
     from emosaic_tpu_torch.ops.analysis import source_blocks
     from emosaic_tpu_torch.probes.k1_k3 import reuse
@@ -1959,7 +1959,7 @@ def phase_n(torch, gen, dev, card, t=32767, side=4096, t2=16384) -> dict:
     lib2 = distance.build_library(pal2)
     cd, cr = distance.l1_topk_adaptive(blocks2, lib2, k)
     bh, lh = blocks2.cpu().numpy(), lib2.cpu().numpy()
-    refiller = distance.DeviceRefiller(blocks2, lib2)
+    refiller = refill.DeviceRefiller(blocks2, lib2)
     for kern in KERNELS:
         kern.launches = 0
     t0 = time.perf_counter()
@@ -2001,24 +2001,23 @@ def phase_n(torch, gen, dev, card, t=32767, side=4096, t2=16384) -> dict:
     refill_wall = time.perf_counter() - t0
     launches_refill = {kern.name: kern.launches for kern in KERNELS}
     info2 = res2.info
-    keep = os.environ.get("EMOSAIC_DEVICE_REFILL")
-    os.environ["EMOSAIC_DEVICE_REFILL"] = "0"
+    # the same render on the engine's host scans: the device refill's
+    # threshold out of reach, so `refiller_for` gives no refiller
+    keep = refill._DEVICE_REFILL_MIN_LD
+    refill._DEVICE_REFILL_MIN_LD = float("inf")
     try:
         t0 = time.perf_counter()
         res3 = render_nto1_no_repeat(src2, ts2, dim, device=dev, stack=stack2,
                                      log=lambda *a: None)
         refill_host_wall = time.perf_counter() - t0
     finally:
-        if keep is None:
-            del os.environ["EMOSAIC_DEVICE_REFILL"]
-        else:
-            os.environ["EMOSAIC_DEVICE_REFILL"] = keep
+        refill._DEVICE_REFILL_MIN_LD = keep
     big = info2["refill_events"] - info2["refill_fused_events"]
     log(f"N render_nto1_no_repeat on refilling traffic ({g2 * dim}^2, B = T = {t2}, the first "
         f"{flat} blocks flat): {refill_wall:.3f} s, assignment {info2['assign_s']:.3f} s; "
         f"{info2['refill_events']} device refill calls of {info2['refill_blocks']} blocks, "
         f"{info2['refill_fused_events']} on K12 and {big} above the crossover "
-        f"(M > {distance._K12_MAX_M}) on K10's stripe; host scans "
+        f"(M > {refill._K12_MAX_M}) on K10's stripe; host scans "
         f"{info2['refill_host_events']}. On the engine's host scans: {refill_host_wall:.3f} s, "
         f"assignment {res3.info['assign_s']:.3f} s, {res3.info['refill_host_events']} scans "
         f"[{card}]")
@@ -3157,7 +3156,7 @@ def main() -> int:
                                  "(emosaic_tpu/ops/distance.py:908-940), no Pallas kernel")
     rows[12]["also_replaces"] = ("none: _mxu_prefilter_jit's XLA dot + approx_min_k "
                                  "(emosaic_tpu/ops/distance.py:703-723), no Pallas kernel")
-    rows[13]["also_replaces"] = ("none: the refill chain of ops/distance.py `_refill_topk` "
+    rows[13]["also_replaces"] = ("none: the refill chain of ops/refill.py `_refill_topk` "
                                  "(gather, K10's stripe, packed-key torch.topk); the JAX "
                                  "package's `_refill_topk_jit` is XLA, no Pallas kernel")
     rows[13].update(consume_device_s=n["consume_device_s"], consume_host_s=n["consume_host_s"],

@@ -7,7 +7,7 @@
 // `make_numpy_refill` (render/greedy.py). Distances are exact int32 L1
 // sums of u8 byte pairs.
 //
-// Replaces, for calls of at most `_K12_MAX_M` blocks (ops/distance.py),
+// Replaces, for calls of at most `_K12_MAX_M` blocks (ops/refill.py),
 // the chain a refill call ran on the card: the host's list of unused rows
 // and its upload, an `index_select` of those rows (113 MB mid-render at
 // 65534 x 3072), K10's stripe at one query row in a 128-row tile, and the
@@ -423,7 +423,7 @@ __global__ void __launch_bounds__(SEL_THREADS)
   }
 }
 
-// The launch plan the caller made (ops/distance.py `_k12_plan`) against
+// The launch plan the caller made (ops/refill.py `_k12_plan`) against
 // this kernel: whole rows of 16-byte vectors whose largest sum fits
 // `bits` bits under INT_MAX, the distances' stride whole 16-byte vectors,
 // k within the selection, and the distance pass's grid.
@@ -447,7 +447,7 @@ extern "C" {
 // 16-byte vectors, contiguous and 16-byte aligned; ids [m] int64 (rows of
 // blocks); used [L] u8 (nonzero: excluded); hist [m, 2048] u32 and dist
 // [m, ld] int32 scratch, 16-byte aligned; out [2, m, k] int32: dists, then
-// rows. `ld`, `bits` and `grid` are the launch plan (ops/distance.py
+// rows. `ld`, `bits` and `grid` are the launch plan (ops/refill.py
 // `_k12_plan`), refused when they do not match this kernel. Where
 // `up_bytes` > 0, the call first copies that many bytes from the
 // page-locked host buffer `up_src` to `up_dst` on the card (the caller's

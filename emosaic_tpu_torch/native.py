@@ -8,11 +8,9 @@ first use, under a file lock, and rebuilds it when the source is newer.
 Every entry point has a pure-Python fallback (render/greedy.py,
 io/prep.py) for a host where the build fails.
 
-One difference from the JAX package: an unexpected exception in a refill
-callback is not served by the engine's host scan. The trampoline records
-it, the engine stops, and `greedy_global` raises it. Only exceptions
-marked `expected_fallback` (the refiller's deliberate deferrals) fall
-back to the host scan.
+One difference from the JAX package: an exception in a refill callback
+is not served by the engine's host scan. The trampoline records it, the
+engine stops, and `greedy_global` raises it.
 """
 
 from __future__ import annotations
@@ -168,9 +166,8 @@ def greedy_global(
     scans with batched device top-k calls: a Python callable
     (block_ids [M] int64, used uint8 [L]) -> (dists [M, cb_k] int32,
     rows [M, cb_k] int32), ascending (distance, row), I32_MAX-padded (see
-    ops/distance.DeviceRefiller). Output is bit-identical with or without
-    the callback. An exception with `expected_fallback` set sends that
-    event to the host scan; any other exception stops the engine and is
+    ops/refill.DeviceRefiller). Output is bit-identical with or without
+    the callback. An exception in the callback stops the engine and is
     raised here. `stats`, when given, is filled from the engine's three
     stats slots: its host masked scans (`refill_host_events`), their
     seconds (`refill_host_s`), and the candidate entries it read
@@ -210,8 +207,6 @@ def greedy_global(
                 np.ctypeslib.as_array(out_r_ptr, shape=(m, cb_k))[:] = r_
                 return 0
             except Exception as e:
-                if getattr(e, "expected_fallback", False):
-                    return 1  # a deliberate deferral: this event's host scan
                 failed.append(e)
                 return -1  # stop the engine; raised below
 

@@ -195,7 +195,7 @@ L2_TOPCAP = CudaKernel(
     source="l2_score",
 )
 #: csrc/masked_refill.cu, the no-repeat engine's masked refill (see
-#: ops/distance.py `masked_refill`)
+#: ops/refill.py `masked_refill`)
 MASKED_REFILL = CudaKernel(
     "masked_refill",
     "emosaic_masked_refill",

@@ -92,13 +92,13 @@ def scene(torch, dev, seed: int = 12):
     return gen, lib, blocks, used
 
 
-def exact_checks(torch, dev, distance) -> None:
+def exact_checks(torch, dev, refill) -> None:
     gen, lib, blocks, used = scene(torch, dev)
-    for m in (1, 4, distance._K12_MAX_M + 1):
+    for m in (1, 4, refill._K12_MAX_M + 1):
         ids = torch.randperm(4096, device=dev, generator=gen)[:m]
-        got = distance.masked_refill(blocks, ids, lib, used, K)
+        got = refill.masked_refill(blocks, ids, lib, used, K)
         torch.cuda.synchronize()
-        want = distance._masked_refill_ref(blocks, ids, lib, used, K)
+        want = refill._masked_refill_ref(blocks, ids, lib, used, K)
         if not torch.equal(got, want):
             raise AssertionError(f"K12 != plain at the cell's shape, M={m}")
     for l, d in ((1034, 24), (129, 48), (5000, 3088), (300, 4112)):
@@ -109,17 +109,19 @@ def exact_checks(torch, dev, distance) -> None:
             for frac in (0.0, 0.5, 1.0):
                 u = (torch.rand(l, device=dev, generator=gen) < frac).to(torch.uint8)
                 for k in (1, 16, 256):
-                    got = distance.masked_refill(x, ids, t, u, k)
+                    got = refill.masked_refill(x, ids, t, u, k)
                     torch.cuda.synchronize()
-                    if not torch.equal(got, distance._masked_refill_ref(x, ids, t, u, k)):
+                    if not torch.equal(got, refill._masked_refill_ref(x, ids, t, u, k)):
                         raise AssertionError(f"K12 != plain at L={l} D={d} M={m} k={k}")
     print(f"K12 exact against its plain version: the cell's shape at M 1, 4, "
-          f"{distance._K12_MAX_M + 1}; L 129..5000, D 24..4112, M 1..64, masks none/half/all, "
+          f"{refill._K12_MAX_M + 1}; L 129..5000, D 24..4112, M 1..64, masks none/half/all, "
           "k 1..256", flush=True)
 
 
-def sweep(torch, dev, distance, ms) -> list[dict]:
+def sweep(torch, dev, refill, ms) -> list[dict]:
     import numpy as np
+
+    from emosaic_tpu_torch.ops.distance import _topk_rows, l1_block
 
     gen, lib, blocks, used = scene(torch, dev)
     used_h = used.cpu().numpy()
@@ -127,29 +129,29 @@ def sweep(torch, dev, distance, ms) -> list[dict]:
     out = []
     for m in ms:
         ids = torch.randperm(4096, device=dev, generator=gen)[:m]
-        k12 = cuda_ms(torch, lambda: distance.masked_refill(blocks, ids, lib, used, K))
+        k12 = cuda_ms(torch, lambda: refill.masked_refill(blocks, ids, lib, used, K))
 
         def chain():
             sub = lib.index_select(0, unused)
-            dist = distance.l1_block(blocks.index_select(0, ids), sub)
-            dd, pos = distance._topk_rows(dist, K)
+            dist = l1_block(blocks.index_select(0, ids), sub)
+            dd, pos = _topk_rows(dist, K)
             return dd, unused[pos.to(torch.int64)]
 
         old = cuda_ms(torch, chain, reps=10)
         ids_h = ids.cpu().numpy().astype(np.int64)
         walls = {}
-        keep = distance._K12_MAX_M
+        keep = refill._K12_MAX_M
         try:
             for route, cap in (("k12", 1 << 30), ("stripe", 0)):
-                distance._K12_MAX_M = cap
-                refiller = distance.DeviceRefiller(blocks, lib, k=K)
+                refill._K12_MAX_M = cap
+                refiller = refill.DeviceRefiller(blocks, lib, k=K)
                 refiller(ids_h, used_h)  # staging buffers, warm
                 t0 = time.perf_counter()
                 for _ in range(20):
                     refiller(ids_h, used_h)
                 walls[route] = (time.perf_counter() - t0) / 20 * 1e3
         finally:
-            distance._K12_MAX_M = keep
+            refill._K12_MAX_M = keep
         nbytes = UNUSED * D + L + m * D + 2 * m * K * 4
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         ceiling = m * UNUSED * D / VABSDIFF4_PAIRS_PER_S * 1e3
@@ -176,7 +178,7 @@ def measured_crossover(rows: list[dict]) -> int | None:
     return best
 
 
-def profile(torch, dev, distance, ms=(1, 4)) -> dict:
+def profile(torch, dev, refill, ms=(1, 4)) -> dict:
     """Device time by kernel (torch.profiler) of 20 K12 calls at each M,
     and the host's share of a refill call: each step's enqueue, mean of
     200 back to back."""
@@ -187,11 +189,11 @@ def profile(torch, dev, distance, ms=(1, 4)) -> dict:
     out = {}
     for m in ms:
         ids = torch.randperm(4096, device=dev, generator=gen)[:m]
-        distance.masked_refill(blocks, ids, lib, used, K)
+        refill.masked_refill(blocks, ids, lib, used, K)
         torch.cuda.synchronize()
         with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
             for _ in range(20):
-                distance.masked_refill(blocks, ids, lib, used, K)
+                refill.masked_refill(blocks, ids, lib, used, K)
             torch.cuda.synchronize()
         by = {}
         for e in p.key_averages():
@@ -202,7 +204,7 @@ def profile(torch, dev, distance, ms=(1, 4)) -> dict:
         print(f"M={m}: device ms a call by kernel {by}", flush=True)
     used_h = used.cpu().numpy()
     ids_h = np.arange(1, dtype=np.int64)
-    refiller = distance.DeviceRefiller(blocks, lib, k=K)
+    refiller = refill.DeviceRefiller(blocks, lib, k=K)
     refiller(ids_h, used_h)
     up_h, up_d, work, off = refiller._up_h, refiller._up_d, refiller._work, refiller._off
     u_h, ptr = refiller._used_h, refiller._up_d.data_ptr()
@@ -210,9 +212,9 @@ def profile(torch, dev, distance, ms=(1, 4)) -> dict:
         "copyto_count": lambda: (np.copyto(u_h, used_h, casting="unsafe"),
                                  np.count_nonzero(used_h)),
         "h2d_enqueue": lambda: up_d[:off + 8].copy_(up_h[:off + 8], non_blocking=True),
-        "k12_launch_enqueue": lambda: distance._k12_launch(
+        "k12_launch_enqueue": lambda: refill._k12_launch(
             refiller._blocks, refiller._lib, ptr + off, ptr, work, 1, K, refiller._plan),
-        "masked_refill_enqueue": lambda: distance.masked_refill(
+        "masked_refill_enqueue": lambda: refill.masked_refill(
             refiller._blocks, up_d[off:off + 8].view(torch.int64), refiller._lib, up_d[:L], K),
         "whole_call": lambda: refiller(ids_h, used_h),
     }
@@ -242,7 +244,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("k12: needs a GPU", file=sys.stderr)
         return 1
-    from emosaic_tpu_torch.ops import _kernels, distance
+    from emosaic_tpu_torch.ops import _kernels, refill
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -251,15 +253,15 @@ def main(argv=None) -> int:
     print(f"built in {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
     if args.ptxas:
         ptxas_report()
-    exact_checks(torch, dev, distance)
-    res = {"card": card, "k12_max_m": distance._K12_MAX_M}
+    exact_checks(torch, dev, refill)
+    res = {"card": card, "k12_max_m": refill._K12_MAX_M}
     if args.profile:
-        res["profile"] = profile(torch, dev, distance)
+        res["profile"] = profile(torch, dev, refill)
     if not args.quick:
-        res["sweep"] = sweep(torch, dev, distance, [int(m) for m in args.sweep.split(",")])
+        res["sweep"] = sweep(torch, dev, refill, [int(m) for m in args.sweep.split(",")])
         res["crossover_measured"] = measured_crossover(res["sweep"])
         print(f"measured crossover: M = {res['crossover_measured']} (the code's "
-              f"`_K12_MAX_M` {distance._K12_MAX_M}) [{card}]", flush=True)
+              f"`_K12_MAX_M` {refill._K12_MAX_M}) [{card}]", flush=True)
     print(json.dumps(res))
     return 0
 

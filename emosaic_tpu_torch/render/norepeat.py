@@ -23,7 +23,6 @@ Stats record *output-pixel* coordinates (rendering.rs:357-364), unlike
 
 from __future__ import annotations
 
-import os
 import sys
 import time
 
@@ -33,12 +32,12 @@ import torch
 from emosaic_tpu_torch.monitor import record, span
 from emosaic_tpu_torch.ops import distance as _distance
 from emosaic_tpu_torch.ops.distance import (
-    DeviceRefiller,
     l1_block,
     l1_topk_adaptive,
     l1_topk_hybrid,
     sorted_lists,
 )
+from emosaic_tpu_torch.ops.refill import refiller_for
 from emosaic_tpu_torch.render.greedy import greedy_global_assign, make_numpy_refill
 from emosaic_tpu_torch.render.matched import (
     RenderOutcome,
@@ -49,10 +48,6 @@ from emosaic_tpu_torch.tiles.tileset import TileSet
 
 #: full-list (exact) mode is used while B * L stays under this many entries
 _EXACT_BUDGET = 2 * 10**8
-#: use the batched device refill (ops/distance.DeviceRefiller) once L * D
-#: makes the C++ engine's per-block host refill scan expensive. Output is
-#: bit-identical either way; EMOSAIC_DEVICE_REFILL=0/1 overrides.
-_DEVICE_REFILL_MIN_LD = 10**8
 #: exact candidates per block past _EXACT_BUDGET. Truncation does not
 #: change assignment results: the greedy engines refill exactly whenever a
 #: block exhausts its prefix, so K only trades scoring time against refill
@@ -145,19 +140,7 @@ def render_nto1_no_repeat(
             lib_h = lib.cpu().numpy()
         with span("norepeat.engine") as engine:
             if native.available():
-                mode = os.environ.get("EMOSAIC_DEVICE_REFILL", "auto")
-                # read the budget at call time so tuning or a test's patch applies
-                oversized = lib.numel() > _distance.DEVICE_LIB_BYTES_MAX
-                want_dev = (
-                    mode == "1"
-                    or (mode not in ("0", "off") and l * lib.shape[1] >= _DEVICE_REFILL_MIN_LD)
-                ) and not oversized
-                if mode == "1" and oversized:
-                    log(
-                        "   EMOSAIC_DEVICE_REFILL=1 overridden: library exceeds the"
-                        " device-resident budget; refills use the exact host scan"
-                    )
-                refiller = DeviceRefiller(blocks, lib) if want_dev else None
+                refiller = refiller_for(blocks, lib)
                 rows, dists = native.greedy_global(
                     cd, cr, blocks_h, lib_h, num_tiles,
                     refill_cb=refiller,

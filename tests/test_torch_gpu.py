@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from emosaic_tpu_torch.ops import composite, composite_lab, distance
+from emosaic_tpu_torch.ops import composite, composite_lab, distance, refill
 from emosaic_tpu_torch.ops._kernels import (
     BAND_TRANSPOSE,
     COARSE_TOPCAP,
@@ -803,10 +803,10 @@ def test_sharded_on_a_virtual_card_mesh(cuda):
 
 def _k12_check(blocks, ids, lib, used, k):
     before = MASKED_REFILL.launches
-    got = distance.masked_refill(blocks, ids, lib, used, k)
+    got = refill.masked_refill(blocks, ids, lib, used, k)
     assert MASKED_REFILL.launches == before + 1
     torch.cuda.synchronize()
-    want = distance._masked_refill_ref(blocks, ids, lib, used, k)
+    want = refill._masked_refill_ref(blocks, ids, lib, used, k)
     assert torch.equal(got, want)
     return got
 
@@ -818,7 +818,7 @@ def test_k12_matches_plain_at_the_cell_shape(cuda, m):
     above it (the kernel takes any M; the refiller sends it only up to the
     crossover); block 0 is a library row with 300 unused copies, so the
     256th place cuts a group of equal distances."""
-    m = {"1": 1, "crossover": distance._K12_MAX_M, "above": distance._K12_MAX_M + 1}[m]
+    m = {"1": 1, "crossover": refill._K12_MAX_M, "above": refill._K12_MAX_M + 1}[m]
     gen = torch.Generator(device=cuda)
     gen.manual_seed(12)
     l, d, k = 65534, 3072, 256
@@ -833,12 +833,12 @@ def test_k12_matches_plain_at_the_cell_shape(cuda, m):
     got = _k12_check(blocks, ids, lib, used, k)
     same = ((lib == lib[7]).all(1) & (used == 0)).nonzero().flatten()
     assert len(same) >= 300 and (got[0, 0] == 0).all() and torch.equal(got[1, 0], same[:k].int())
-    refiller = distance.DeviceRefiller(blocks, lib, k=k)
+    refiller = refill.DeviceRefiller(blocks, lib, k=k)
     dd, dr = refiller(ids.cpu().numpy(), used.cpu().numpy())
     torch.cuda.synchronize()
     np.testing.assert_array_equal(dd, got[0].cpu().numpy())
     np.testing.assert_array_equal(dr, got[1].cpu().numpy())
-    assert refiller.n_fused == int(m <= distance._K12_MAX_M)
+    assert refiller.n_fused == int(m <= refill._K12_MAX_M)
 
 
 @pytest.mark.parametrize("l,d", [(1034, 24), (1, 3), (129, 48), (5000, 3088), (300, 4112)])
@@ -854,7 +854,7 @@ def test_k12_matches_plain_at_edges(cuda, l, d):
         ids = torch.from_numpy(rng.choice(70, size=m, replace=False)).to(cuda)
         for frac in (0.0, 0.5, 1.0):
             used = torch.from_numpy((rng.random(l) < frac).astype(np.uint8)).to(cuda)
-            for k in (1, 16, 256, distance._K12_MAX_K):
+            for k in (1, 16, 256, refill._K12_MAX_K):
                 _k12_check(blocks, ids, lib, used, k)
             _k12_check(blocks, ids, storm, used, 16)
         one = torch.ones(l, dtype=torch.uint8, device=cuda)

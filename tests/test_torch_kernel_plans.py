@@ -1,7 +1,7 @@
 """The launch plans of K1, K3, K4, K9, K10, K11 and K12 (`ops/distance.py`
 `_k1_plan`, `_k3_plan`, `_k4_plan`, `_k9_plan`, `_k10_plan`,
-`_k11_argmin_plan`, `_k11_topcap_plan`, `_k12_plan`): the Python side of
-the kernels, checked on the CPU.
+`_k11_argmin_plan`, `_k11_topcap_plan`; `ops/refill.py` `_k12_plan`): the
+Python side of the kernels, checked on the CPU.
 
 K1 takes the register path for rows of at most 16 words (D <= 64) and the
 staged path, on rows padded to 16-byte vectors, above; its library splits
@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 from emosaic_tpu_torch.ops import distance as P
+from emosaic_tpu_torch.ops import refill as R
 
 
 @pytest.mark.parametrize(
@@ -703,7 +704,7 @@ def test_k11_entries_share_one_source_and_count_apart():
     assert L2_ARGMIN.source == L2_TOPCAP.source and L2_ARGMIN.source.name == "l2_score.cu"
     assert L2_ARGMIN.library == L2_TOPCAP.library
     assert (L2_ARGMIN.name, L2_TOPCAP.name) == ("l2_argmin", "l2_topcap")
-    assert KERNELS[-4:-2] == (L2_ARGMIN, L2_TOPCAP)
+    assert L2_ARGMIN in KERNELS and L2_TOPCAP in KERNELS
 
 
 @pytest.mark.parametrize(
@@ -711,16 +712,16 @@ def test_k11_entries_share_one_source_and_count_apart():
                 (2**31 - 4, 16, 132), (100, 8421504 // 16 * 16 - 16, 132)]
 )
 def test_k12_plan_covers_the_library_and_bounds_the_distances(l, d, sms):
-    nv, ld, bits, grid = P._k12_plan(l, d, sms)
+    nv, ld, bits, grid = R._k12_plan(l, d, sms)
     assert 16 * nv >= d > 16 * (nv - 1)  # whole 16-byte vectors
     assert ld % 4 == 0 and l <= ld < l + 4  # a query's distances in whole 16-byte vectors
     assert 255 * 16 * nv < 2**bits <= 2 * 255 * 16 * nv  # the select's digits start at the top
     assert bits <= 31  # every distance below INT_MAX, the kernel's mark of a used row
     groups = -(-l // 32)
-    assert 1 <= grid <= sms * P._K12_BLOCKS_PER_SM
-    assert grid * P._K12_WARPS >= min(groups, sms * P._K12_BLOCKS_PER_SM * P._K12_WARPS)
+    assert 1 <= grid <= sms * R._K12_BLOCKS_PER_SM
+    assert grid * R._K12_WARPS >= min(groups, sms * R._K12_BLOCKS_PER_SM * R._K12_WARPS)
     if groups < 10**5:  # the warps' grid-stride walk takes every group of 32 rows once
-        warps = grid * P._K12_WARPS
+        warps = grid * R._K12_WARPS
         walked = sorted(g for w in range(warps) for g in range(w, groups, warps))
         assert walked == list(range(groups))
 
@@ -728,12 +729,13 @@ def test_k12_plan_covers_the_library_and_bounds_the_distances(l, d, sms):
 def test_k12_main_path_plan():
     # the flagship refill: 65534 rows of 3072 bytes, 2048 groups of 32 rows
     # on 256 blocks of 8 warps, one group a warp; distances < 2^20
-    assert P._k12_plan(65534, 3072, 132) == (192, 65536, 20, 256)
-    assert P._K12_MAX_K >= 256  # the refiller's k
+    assert R._k12_plan(65534, 3072, 132) == (192, 65536, 20, 256)
+    assert R._K12_MAX_K >= 256  # the refiller's k
 
 
 def test_k12_has_its_own_source_and_counter():
     from emosaic_tpu_torch.ops._kernels import KERNELS, MASKED_REFILL
 
-    assert MASKED_REFILL.source.name == "masked_refill.cu" and KERNELS[-2] is MASKED_REFILL
+    assert MASKED_REFILL.source.name == "masked_refill.cu" and MASKED_REFILL in KERNELS
+    assert [k.source_name for k in KERNELS].count(MASKED_REFILL.source_name) == 1
     assert MASKED_REFILL.name == "masked_refill"

@@ -1,8 +1,9 @@
 """The port's native engine (`emosaic_tpu_torch.native`, a copy of the JAX
 package's C++ helpers built into `emosaic_tpu_torch/_build/`) and its
-device refiller (`ops.distance.DeviceRefiller`) and K12's plain version
-(`ops.distance.masked_refill` on CPU tensors) against the JAX package's
-pure-Python engines and numpy refill, exactly.
+device refiller (`ops.refill.DeviceRefiller`, and `refiller_for`, the rule
+that picks it) and K12's plain version (`ops.refill.masked_refill` on CPU
+tensors) against the JAX package's pure-Python engines and numpy refill,
+exactly.
 
 The refiller runs on CPU tensors here (K12's plain version, and the plain
 int32 stripes above `_K12_MAX_M` blocks); on the card the same code
@@ -21,8 +22,9 @@ from emosaic_tpu.render.greedy import (
 )
 from emosaic_tpu_torch import native
 from emosaic_tpu_torch.io import prep
-from emosaic_tpu_torch.ops import distance
-from emosaic_tpu_torch.ops.distance import I32_MAX, DeviceRefiller, _DeferRefill
+from emosaic_tpu_torch.ops import distance, refill
+from emosaic_tpu_torch.ops.distance import I32_MAX
+from emosaic_tpu_torch.ops.refill import DeviceRefiller, refiller_for
 from emosaic_tpu_torch.render import greedy as port_greedy
 
 
@@ -93,13 +95,13 @@ def test_greedy_sequence_matches_jax_python_engine(rng, engine):
 def test_device_refiller_matches_numpy_refill(rng):
     t, b, d, k = 70, 24, 48, 16
     blocks, lib, _, _ = _clustered(rng, t, b, d, k)
-    refill = make_numpy_refill(blocks, lib, k=k)
+    host = make_numpy_refill(blocks, lib, k=k)
     dev = DeviceRefiller(blocks, lib, k=k)
     for frac in (0.0, 0.5, 0.95, 1.0):
         used = (rng.random(2 * t) < frac).astype(np.uint8)
         ids = rng.choice(b, size=7, replace=False).astype(np.int64)
         dd, dr = dev(ids, used)
-        nd_, nr_ = refill(ids, used.astype(bool))
+        nd_, nr_ = host(ids, used.astype(bool))
         for i in range(len(ids)):
             valid = nd_[i] != I32_MAX
             n = int(valid.sum())
@@ -117,7 +119,7 @@ def test_greedy_global_device_refill_bit_identical(rng, engine, margin):
     got = native.greedy_global(
         cd, cr, blocks, lib, t, refill_cb=dev, cb_margin=margin, cb_max_batch=dev.max_batch
     )
-    assert dev.n_calls > 0 and dev.n_deferred == 0
+    assert dev.n_calls > 0
     np.testing.assert_array_equal(got[0], base[0])
     np.testing.assert_array_equal(got[1], base[1])
 
@@ -162,7 +164,7 @@ def test_k12_contract_against_numpy_refill_and_host_scan(rng, engine, mask, m):
     blocks, lib, cd, cr, used = _k12_case(rng, mask, k=k)
     ids = rng.choice(len(blocks), size=m, replace=False).astype(np.int64)
     nd_, nr_ = make_numpy_refill(blocks, lib, k=k)(ids, used.astype(bool))
-    kd = distance.masked_refill(torch.from_numpy(blocks), torch.from_numpy(ids),
+    kd = refill.masked_refill(torch.from_numpy(blocks), torch.from_numpy(ids),
                                 torch.from_numpy(lib), torch.from_numpy(used), k).numpy()
     dev = DeviceRefiller(blocks, lib, k=k)
     dd, dr = dev(ids, used)
@@ -178,12 +180,12 @@ def test_k12_contract_against_numpy_refill_and_host_scan(rng, engine, mask, m):
         assert any(dd[i][k - 1] == dd[i][k - 2] for i in range(m))
     if mask != "all":  # an all-used mask is answered on the host
         assert dev.n_calls == 1 and dev.n_blocks == m and dev.n_rows == int((used == 0).sum())
-        assert dev.n_fused == int(m <= distance._K12_MAX_M)
+        assert dev.n_fused == int(m <= refill._K12_MAX_M)
     t = len(lib) // 2
     base = native.greedy_global(cd, cr, blocks, lib, t)
     dev = DeviceRefiller(blocks, lib)
     got = native.greedy_global(cd, cr, blocks, lib, t, refill_cb=dev, cb_max_batch=m)
-    assert dev.n_calls > 0 and dev.n_deferred == 0
+    assert dev.n_calls > 0
     np.testing.assert_array_equal(got[0], base[0])
     np.testing.assert_array_equal(got[1], base[1])
 
@@ -196,26 +198,47 @@ def test_device_refiller_serves_the_first_event_on_the_device(rng, engine):
     dev = DeviceRefiller(blocks, lib)
     dd, _ = dev(np.arange(3, dtype=np.int64), np.zeros(2 * t, np.uint8))
     assert (dd[:, 0] < I32_MAX).all()
-    assert (dev.n_calls, dev.n_fused, dev.n_deferred) == (1, 1, 0)
+    assert (dev.n_calls, dev.n_fused) == (1, 1)
     stats = {}
     dev = DeviceRefiller(blocks, lib)
     native.greedy_global(cd, cr, blocks, lib, t, refill_cb=dev,
-                         cb_max_batch=distance._K12_MAX_M, stats=stats)
+                         cb_max_batch=refill._K12_MAX_M, stats=stats)
     assert stats["refill_host_events"] == 0 and dev.n_fused == dev.n_calls > 0
     with pytest.raises(ValueError, match="k must be"):
-        DeviceRefiller(blocks, lib, k=distance._K12_MAX_K + 1)
+        DeviceRefiller(blocks, lib, k=refill._K12_MAX_K + 1)
+
+
+@pytest.mark.parametrize("case", ["below", "past_budget", "device"])
+def test_refiller_for_is_the_one_rule(rng, monkeypatch, case):
+    """`refiller_for` leaves a render on the engine's host scan (None)
+    where L * D is under `_DEVICE_REFILL_MIN_LD` or the library is past
+    `DEVICE_LIB_BYTES_MAX`, both read at call time; at the threshold and
+    at the budget it gives a `DeviceRefiller` on the blocks' device."""
+    blocks, lib, _, _ = _clustered(rng, 70, 24, 48, 4)
+    monkeypatch.setattr(refill, "_DEVICE_REFILL_MIN_LD", lib.size + (case == "below"))
+    monkeypatch.setattr(distance, "DEVICE_LIB_BYTES_MAX", lib.size - (case == "past_budget"))
+    got = refiller_for(torch.from_numpy(blocks), torch.from_numpy(lib))
+    if case == "device":
+        assert isinstance(got, DeviceRefiller) and got.device.type == "cpu"
+        assert (got.l, got.n_calls) == (len(lib), 0)
+    else:
+        assert got is None
 
 
 def test_refill_callback_failure_raises_and_deferrals_stay_silent(rng, engine, capfd, monkeypatch):
-    """A deferral falls back to the host scan silently; any other callback
+    """A library past the device budget gets no callback (`refiller_for`
+    gives None) and the engine's host scans serve it silently; a callback
     exception stops the engine and is raised, not served by host scans."""
     blocks, lib, cd, cr = _candidates(rng, 60, 30, 12, 3)
     base = native.greedy_global(cd, cr, blocks, lib, 30)
+    monkeypatch.setattr(refill, "_DEVICE_REFILL_MIN_LD", 0)
     monkeypatch.setattr(distance, "DEVICE_LIB_BYTES_MAX", lib.nbytes - 1)
-    dev = DeviceRefiller(blocks, lib)  # oversized: always defers
-    got = native.greedy_global(cd, cr, blocks, lib, 30, refill_cb=dev)
+    assert refiller_for(blocks, lib) is None
+    stats = {}
+    got = native.greedy_global(cd, cr, blocks, lib, 30, refill_cb=refiller_for(blocks, lib),
+                               stats=stats)
     np.testing.assert_array_equal(got[0], base[0])
-    assert dev.n_deferred > 0 and dev.n_calls == 0
+    assert stats["refill_host_events"] > 0
     assert "refill" not in capfd.readouterr().err
     calls = []
 
@@ -232,28 +255,31 @@ def test_exhaustion_short_circuit_never_reaches_the_callback(rng, engine):
     t, b, d, k = 30, 90, 24, 3
     blocks, lib, cd, cr = _clustered(rng, t, b, d, k)
     seen = []
+    host = make_numpy_refill(blocks, lib, k=16)
 
     def spy(ids, used):
         seen.append(int((used == 0).sum()))
-        raise _DeferRefill(0)
+        return host(ids, used.astype(bool))
 
-    got = native.greedy_global(cd, cr, blocks, lib, t, refill_cb=spy)
-    assert int((got[0] >= 0).sum()) == t and all(n > 0 for n in seen)
+    got = native.greedy_global(cd, cr, blocks, lib, t, refill_cb=spy, cb_k=16)
+    assert int((got[0] >= 0).sum()) == t and seen and all(n > 0 for n in seen)
     want = greedy_global_assign(cd, cr, 2 * t, t, make_numpy_refill(blocks, lib))
     np.testing.assert_array_equal(got[0], want[0])
 
 
 def test_device_refiller_oversized_library_stays_on_host(rng, engine, monkeypatch):
+    """The refiller refuses a library past `DEVICE_LIB_BYTES_MAX` (read at
+    call time) and takes one at the budget."""
     t, b, d, k = 120, 200, 96, 6
     blocks, lib, cd, cr = _clustered(rng, t, b, d, k)
-    base = native.greedy_global(cd, cr, blocks, lib, t)
     monkeypatch.setattr(distance, "DEVICE_LIB_BYTES_MAX", lib.nbytes - 1)
+    with pytest.raises(ValueError, match="device budget"):
+        DeviceRefiller(blocks, lib)
+    monkeypatch.setattr(distance, "DEVICE_LIB_BYTES_MAX", lib.nbytes)
     dev = DeviceRefiller(blocks, lib)
-    assert dev.oversized
-    with pytest.raises(_DeferRefill):
-        dev(np.arange(3, dtype=np.int64), np.zeros(2 * t, np.uint8))
+    base = native.greedy_global(cd, cr, blocks, lib, t)
     got = native.greedy_global(cd, cr, blocks, lib, t, refill_cb=dev, cb_max_batch=dev.max_batch)
-    assert dev.n_calls == 0 and dev.n_deferred > 1
+    assert dev.n_calls > 0
     np.testing.assert_array_equal(got[0], base[0])
 
 
@@ -266,33 +292,34 @@ def test_cb_k_follows_the_refiller(rng, engine):
     np.testing.assert_array_equal(got[0], base[0])
 
 
-@pytest.mark.parametrize("refiller", [None, "device", "deferring"])
-def test_greedy_global_stats_leave_the_rows_alone(rng, engine, refiller, monkeypatch):
+@pytest.mark.parametrize("refiller", [None, "device", "host"])
+def test_greedy_global_stats_leave_the_rows_alone(rng, engine, refiller):
     """`stats` gets the engine's host scans and their seconds; the rows and
-    distances are the ones without it. A deferring refiller is one whose
-    library is past the device budget."""
+    distances are the ones without it. The "host" callback serves every
+    event with the JAX package's numpy refill, so the engine scans none."""
     t, b, d, k = 120, 200, 96, 6
     blocks, lib, cd, cr = _clustered(rng, t, b, d, k)
     base = native.greedy_global(cd, cr, blocks, lib, t)
     kw = {}
-    if refiller is not None:
-        if refiller == "deferring":
-            monkeypatch.setattr(distance, "DEVICE_LIB_BYTES_MAX", lib.nbytes - 1)
+    calls = []
+    if refiller == "device":
         dev = DeviceRefiller(blocks, lib)
         kw = dict(refill_cb=dev, cb_max_batch=dev.max_batch)
+    elif refiller == "host":
+        host = make_numpy_refill(blocks, lib, k=16)
+        kw = dict(refill_cb=lambda ids, used: calls.append(1) or host(ids, used.astype(bool)),
+                  cb_k=16)
     stats = {}
     got = native.greedy_global(cd, cr, blocks, lib, t, stats=stats, **kw)
     np.testing.assert_array_equal(got[0], base[0])
     np.testing.assert_array_equal(got[1], base[1])
     assert set(stats) == {"refill_host_events", "refill_host_s", "engine_entries"}
     assert stats["engine_entries"] >= np.count_nonzero(got[0] >= 0)
-    if refiller == "device":
-        assert stats["refill_host_events"] == 0 and stats["refill_host_s"] == 0.0
-        assert dev.n_calls > 0
-    else:
+    if refiller is None:
         assert stats["refill_host_events"] > 0 and stats["refill_host_s"] > 0
-    if refiller == "deferring":
-        assert stats["refill_host_events"] == dev.n_deferred
+    else:
+        assert stats["refill_host_events"] == 0 and stats["refill_host_s"] == 0.0
+        assert (dev.n_calls if refiller == "device" else len(calls)) > 0
 
 
 def test_native_trim_matches_numpy_trim(rng, engine):

@@ -18,7 +18,7 @@ from emosaic_tpu.render import matched as jax_matched
 from emosaic_tpu.render import norepeat as jax_norepeat
 from emosaic_tpu.tiles.tileset import TileSet as JaxTileSet
 from emosaic_tpu_torch import native
-from emosaic_tpu_torch.ops import distance
+from emosaic_tpu_torch.ops import distance, refill
 from emosaic_tpu_torch.parallel import make_mesh
 from emosaic_tpu_torch.render import matched, norepeat
 from emosaic_tpu_torch.tiles.tileset import TileSet
@@ -91,15 +91,16 @@ def test_render_nto1_no_repeat_matches_jax(rng, monkeypatch, route, engine):
 
 
 def test_no_repeat_device_refill_route_bit_identical(rng, monkeypatch):
-    """EMOSAIC_DEVICE_REFILL=1 sends refills through DeviceRefiller; with
-    B near T the prefixes run dry, so refills really happen."""
+    """With the threshold at 0 (`refill._DEVICE_REFILL_MIN_LD`) refills go
+    through DeviceRefiller; with B near T the prefixes run dry, so refills
+    really happen."""
     pal, src = _clustered_scene(rng, 200, 2, 24, 24)  # 144 blocks, T = 200
     stack = rng.integers(0, 256, size=(200, 4, 4, 3), dtype=np.uint8)
     ts, jts = _sets(pal)
     want = jax_norepeat.render_nto1_no_repeat(src, jts, 4, stack=stack, **quiet)
     monkeypatch.setattr(norepeat, "_EXACT_BUDGET", 0)
     monkeypatch.setattr(norepeat, "_TRUNCATED_K", 4)
-    monkeypatch.setenv("EMOSAIC_DEVICE_REFILL", "1")
+    monkeypatch.setattr(refill, "_DEVICE_REFILL_MIN_LD", 0)
     got = norepeat.render_nto1_no_repeat(src, ts, 4, device="cpu", stack=stack, **quiet)
     if native.available():
         assert got.info["refill_events"] > 0
@@ -111,12 +112,12 @@ def test_no_repeat_device_refill_route_bit_identical(rng, monkeypatch):
 )
 def test_no_repeat_refill_counters(rng, monkeypatch, engine, route):
     """Device refills count their calls, blocks and rows, and the calls K12
-    served, and are spans; the engine's host scans (the refiller's
-    deferrals among them) count their events and seconds; the render is
-    the JAX package's either way. Routes: the default (every device call
-    on K12, none deferred), "0" (`_K12_MAX_M` = 0: every call on K10's
-    stripe), "oversized" (a library past the device budget: every event
-    on the host scan)."""
+    served, and are spans; the engine's host scans count their events and
+    seconds; the render is the JAX package's either way. Routes, with the
+    device refill's threshold at 0: the default (every device call on
+    K12), "0" (`_K12_MAX_M` = 0: every call on K10's stripe), "oversized"
+    (a library past the device budget: `refiller_for` gives no refiller,
+    every event on the host scan)."""
     pal, src = _clustered_scene(rng, 200, 2, 24, 24)  # 144 blocks, T = 200
     stack = rng.integers(0, 256, size=(200, 4, 4, 3), dtype=np.uint8)
     ts, jts = _sets(pal)
@@ -125,9 +126,9 @@ def test_no_repeat_refill_counters(rng, monkeypatch, engine, route):
     # lists of 12: about ten refill events of 1 to 5 blocks (of 4, one of
     # 119 blocks)
     monkeypatch.setattr(norepeat, "_TRUNCATED_K", 12)
-    monkeypatch.setenv("EMOSAIC_DEVICE_REFILL", "1")
+    monkeypatch.setattr(refill, "_DEVICE_REFILL_MIN_LD", 0)
     if route == "0":
-        monkeypatch.setattr(distance, "_K12_MAX_M", 0)
+        monkeypatch.setattr(refill, "_K12_MAX_M", 0)
     if engine == "python":
         monkeypatch.setattr(native, "available", lambda: False)
     elif not native.available():
@@ -150,6 +151,8 @@ def test_no_repeat_refill_counters(rng, monkeypatch, engine, route):
     else:
         assert info["refill_host_events"] > 0 and info["refill_host_s"] > 0
         assert info.get("refill_events", 0) == 0 and "norepeat.refill" not in spans
+        if engine == "native":  # the rule left the engine without a refiller
+            assert info["refill_events"] == info["refill_fused_events"] == 0
     _same(got, want, 4)
 
 
