@@ -1096,7 +1096,8 @@ def phase_c_k13(torch, dev, card) -> dict:
             "ms_long_rows": edge["ms"], "bound_ms_long_rows": edge["bound_ms"],
             "plain_ms_long_rows": edge["plain_ms"], "library_ms_long_rows": edge["library_ms"],
             "shape_long_rows": edge["shape"], "sorted_lists_s": cell["sorted_lists_s"],
-            "copy_s": cell["copy_s"], "host_sort_s": cell["host_sort_s"], "exact": exact}
+            "copy_s": cell["copy_s"], "unpack_s": cell["unpack_s"],
+            "host_sort_s": cell["host_sort_s"], "exact": exact}
 
 
 def phase_c_k11(torch, gen, dev, card, mode4=(262144, 200000, 48), flag=(4096, 65534, 3072),

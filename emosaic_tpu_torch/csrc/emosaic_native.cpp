@@ -1,9 +1,10 @@
 // emosaic_tpu_torch native runtime helpers: a copy of the JAX package's
 // native/emosaic_native.cpp, built with the host C++ compiler at first use
-// (emosaic_tpu_torch/native.py). One change: a refill callback that returns
+// (emosaic_tpu_torch/native.py). Two changes: a refill callback that returns
 // a negative code aborts the assignment (emosaic_greedy_global_cb returns
 // 2), so an unexpected callback failure is raised by the caller instead of
-// being served by host scans.
+// being served by host scans; and the global greedy also reads the card's
+// sorted u32 keys as they are (emosaic_greedy_global_keys).
 //
 // The GPU owns every batched kernel (analysis, distance, top-k, composite);
 // what remains host-side is the inherently *sequential* state machine of
@@ -123,6 +124,27 @@ void masked_topk(const uint8_t* block, const uint8_t* lib, int64_t L,
   }
 }
 
+// The [B, K] candidate lists' two layouts, read entry by entry at the
+// engine's cursors (a compile-time policy of Ctx, so each reader compiles to
+// its own loop): the int32 (distance, row) pair of arrays, or the u32 keys
+// (dist << bits_c) | row of the card's row sort (ops/distance.py
+// `sorted_lists`), decoded where the engine reaches them.
+struct PairLists {
+  const int32_t* cand_d;
+  const int32_t* cand_r;
+  int32_t dist(int64_t i) const { return cand_d[i]; }
+  int32_t row(int64_t i) const { return cand_r[i]; }
+};
+
+struct KeyLists {
+  const uint32_t* keys;
+  uint32_t bits_c;
+  int32_t dist(int64_t i) const { return (int32_t)(keys[i] >> bits_c); }
+  int32_t row(int64_t i) const {
+    return (int32_t)(keys[i] & ((uint32_t(1) << bits_c) - 1));
+  }
+};
+
 // Per-block candidate stream: dense [K] prefix + refill extras.
 struct Stream {
   int64_t cursor = 0;       // position in the dense prefix
@@ -141,9 +163,9 @@ typedef int32_t (*emosaic_refill_cb)(void* user, const int64_t* block_ids,
                                      int64_t m, const uint8_t* used,
                                      int32_t* out_d, int32_t* out_r);
 
+template <class Lists>
 struct Ctx {
-  const int32_t* cand_d;
-  const int32_t* cand_r;
+  Lists lists;
   int64_t K;
   const uint8_t* blocks;
   const uint8_t* lib;
@@ -230,12 +252,12 @@ struct Ctx {
     Stream& s = streams[b];
     for (;;) {
       if (s.cursor < K) {
-        int32_t d = cand_d[b * K + s.cursor];
+        int32_t d = lists.dist(b * K + s.cursor);
         if (d == kI32Max) {
           s.cursor = K;  // padded-out prefix: exhausted
           continue;
         }
-        int32_t r = cand_r[b * K + s.cursor];
+        int32_t r = lists.row(b * K + s.cursor);
         if (!used[r]) {
           *dist = d;
           *row = r;
@@ -305,7 +327,8 @@ struct Ctx {
 // queue with mirror-pair exclusion (rendering.rs:346-392), tie-broken by
 // block index like the Python engine. `stats`, when not null, receives
 // {host masked scans, their seconds, candidate entries read}.
-int run_greedy_global(Ctx& ctx, int64_t B, int64_t num_tiles,
+template <class Lists>
+int run_greedy_global(Ctx<Lists>& ctx, int64_t B, int64_t num_tiles,
                       int32_t* out_row, int32_t* out_dist, double* stats) {
   ctx.used.assign(ctx.L, 0);
   ctx.n_unused = ctx.L;
@@ -317,8 +340,8 @@ int run_greedy_global(Ctx& ctx, int64_t B, int64_t num_tiles,
   using Entry = std::pair<int32_t, int64_t>;  // (current best dist, block)
   std::priority_queue<Entry, std::vector<Entry>, std::greater<Entry>> heap;
   for (int64_t b = 0; b < B; ++b) {
-    if (ctx.cand_d[b * ctx.K] != kI32Max)
-      heap.emplace(ctx.cand_d[b * ctx.K], b);
+    if (ctx.lists.dist(b * ctx.K) != kI32Max)
+      heap.emplace(ctx.lists.dist(b * ctx.K), b);
   }
   while (!heap.empty()) {
     auto [key, b] = heap.top();
@@ -367,7 +390,7 @@ int emosaic_greedy_sequence(const int32_t* order, const int32_t* cand_d,
                             const uint8_t* blocks, const uint8_t* lib,
                             int64_t L, int64_t D, int32_t* out_row,
                             int32_t* out_dist) {
-  Ctx ctx{cand_d, cand_r, K, blocks, lib, L, D};
+  Ctx<PairLists> ctx{{cand_d, cand_r}, K, blocks, lib, L, D};
   ctx.used.assign(L, 0);
   ctx.n_unused = L;  // row-granular exclusion (no mirror pair here)
   ctx.streams.assign(B, Stream{});
@@ -401,7 +424,21 @@ int emosaic_greedy_global(const int32_t* cand_d, const int32_t* cand_r,
                           const uint8_t* lib, int64_t L, int64_t D,
                           int64_t num_tiles, int32_t* out_row,
                           int32_t* out_dist, double* stats) {
-  Ctx ctx{cand_d, cand_r, K, blocks, lib, L, D};
+  Ctx<PairLists> ctx{{cand_d, cand_r}, K, blocks, lib, L, D};
+  return run_greedy_global(ctx, B, num_tiles, out_row, out_dist, stats);
+}
+
+// Global greedy on the card's sorted u32 keys [B, K], (dist << bits_c) |
+// row (ops/distance.py `sorted_lists`): the same assignment, stats and tie
+// order as emosaic_greedy_global on the lists the keys decode to, each key
+// decoded where the engine reads it. `bits_c` in [0, 31]; returns 1 outside.
+int emosaic_greedy_global_keys(const uint32_t* keys, int64_t B, int64_t K,
+                               int64_t bits_c, const uint8_t* blocks,
+                               const uint8_t* lib, int64_t L, int64_t D,
+                               int64_t num_tiles, int32_t* out_row,
+                               int32_t* out_dist, double* stats) {
+  if (bits_c < 0 || bits_c > 31) return 1;
+  Ctx<KeyLists> ctx{{keys, (uint32_t)bits_c}, K, blocks, lib, L, D};
   return run_greedy_global(ctx, B, num_tiles, out_row, out_dist, stats);
 }
 
@@ -418,7 +455,7 @@ int emosaic_greedy_global_cb(const int32_t* cand_d, const int32_t* cand_r,
                              void* user, int64_t cb_k, int64_t cb_margin,
                              int64_t cb_max_batch, int32_t* out_row,
                              int32_t* out_dist, double* stats) {
-  Ctx ctx{cand_d, cand_r, K, blocks, lib, L, D};
+  Ctx<PairLists> ctx{{cand_d, cand_r}, K, blocks, lib, L, D};
   ctx.cb = cb;
   ctx.cb_user = user;
   ctx.cb_k = cb_k;

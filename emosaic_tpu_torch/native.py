@@ -114,6 +114,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         _REFILL_CFUNC, ctypes.c_void_p, i64, i64, i64, i32p, i32p, f64p
     ]
     lib.emosaic_greedy_global_cb.restype = ctypes.c_int
+    lib.emosaic_greedy_global_keys.argtypes = [
+        np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS"),
+        i64, i64, i64, u8p, u8p, i64, i64, i64, i32p, i32p, f64p
+    ]
+    lib.emosaic_greedy_global_keys.restype = ctypes.c_int
     lib.emosaic_trim_bounds.argtypes = [u8p, i64, i64, i32p]
     lib.emosaic_trim_bounds.restype = None
     return lib
@@ -154,6 +159,7 @@ def greedy_global(
     lib,
     num_tiles,
     *,
+    bits_c: int | None = None,
     refill_cb=None,
     cb_k: int | None = None,
     cb_margin: int = 8,
@@ -175,17 +181,32 @@ def greedy_global(
     once, when the engine moves past it, taken or skipped as used. At
     least one per assigned block; its mean per block is how deep the
     greedy goes into the lists.
+
+    With `bits_c`, `cand_d` holds the card's sorted lists as they come to
+    the host instead, u32 keys [B, K] (dist << bits_c) | row
+    (`ops.distance.sorted_lists`), each decoded where the engine reads it,
+    and `cand_r` is None: the output and `stats` of the pair they decode
+    to. No refill callback then: u32 keys hold 255 * D * L < 2^32, so L * D
+    is far under the device refill's threshold (`ops.refill.refiller_for`).
     """
     nl = load()
     b, k = cand_d.shape
-    cand_d = _c(cand_d, np.int32)
-    cand_r = _c(cand_r, np.int32)
+    cand_d = _c(cand_d, np.int32 if bits_c is None else np.uint32)
+    if bits_c is None:
+        cand_r = _c(cand_r, np.int32)
+    elif cand_r is not None or refill_cb is not None:
+        raise ValueError("packed keys take neither a row array nor a refill callback")
     blocks = _c(blocks, np.uint8)
     lib = _c(lib, np.uint8)
     out_row = np.empty(b, dtype=np.int32)
     out_dist = np.empty(b, dtype=np.int32)
     out_stats = (ctypes.c_double * 3)() if stats is not None else None
-    if refill_cb is None:
+    if bits_c is not None:
+        rc = nl.emosaic_greedy_global_keys(
+            cand_d, b, k, bits_c, blocks, lib,
+            lib.shape[0], lib.shape[1], num_tiles, out_row, out_dist, out_stats,
+        )
+    elif refill_cb is None:
         rc = nl.emosaic_greedy_global(
             cand_d, cand_r, b, k, blocks, lib,
             lib.shape[0], lib.shape[1], num_tiles, out_row, out_dist, out_stats,

@@ -34,11 +34,12 @@ The torch counterpart of `emosaic_tpu/ops/distance.py`.
   (tensor-core u8 products): its argmin entry (`_l2_argmin`, plain
   version `_l2_argmin_ref`) and its fused per-segment top-cap
   (`l2_topcap`, plain version `_l2_topcap_ref`), the prefilter's stage 1.
-- `row_sort`, `sorted_lists`: every row of a dense distance matrix sorted
-  on the packed (distance, column) key, the exact-full no-repeat route's
-  full candidate lists. On the card it launches the hand-written kernel
-  K13 `csrc/row_sort.cu`; on a CPU tensor it runs `_row_sort_ref`, its
-  plain torch version.
+- `row_sort`, `sorted_lists`, `unpack_lists`: every row of a dense
+  distance matrix sorted on the packed (distance, column) key, the
+  exact-full no-repeat route's full candidate lists, brought to the host
+  as those keys where they fit 4 bytes. On the card it launches the
+  hand-written kernel K13 `csrc/row_sort.cu`; on a CPU tensor it runs
+  `_row_sort_ref`, its plain torch version.
 
 The no-repeat engine's device refill (K12, `DeviceRefiller`) is
 `ops/refill.py`.
@@ -677,7 +678,7 @@ def row_sort(dist: torch.Tensor, dmax: int) -> torch.Tensor:
     `np.argsort(kind="stable")`, on dist's device: where the plan's keys
     are 4 bytes, the keys (dist << bits_c) | col themselves, int32 [B, L]
     holding their u32 bits; else int32 [2, B, L], the distances, then the
-    columns (`_k13_plan`; `sorted_lists` unpacks either).
+    columns (`_k13_plan`; `sorted_lists` brings either to the host).
 
     On the card it launches the hand-written kernel K13 `csrc/row_sort.cu`;
     on a CPU tensor it runs `_row_sort_ref`, its plain torch version."""
@@ -725,25 +726,34 @@ def _row_sort_ref(dist: torch.Tensor, dmax: int) -> torch.Tensor:
 
 
 def sorted_lists(dist: torch.Tensor, dmax: int, *,
-                 stats: dict | None = None) -> tuple[np.ndarray, np.ndarray]:
+                 stats: dict | None = None) -> tuple[np.ndarray, int | None]:
     """The full sorted candidate lists of the matrix `dist` (int32 [B, L],
-    entries in [0, dmax]) as host int32 arrays (dists [B, L], rows [B, L]):
-    `row_sort`, one copy of its output to the host, and where the keys are
-    4 bytes their split into distances and rows (two numpy passes; the rows
-    overwrite the keys, so only the distances take fresh host pages).
-    `stats`, when given, gets the sort that ran (`sort`: "k13" on the card,
-    "plain" on the CPU) and its key bytes (`key_bytes`)."""
+    entries in [0, dmax]) as they come to the host in one copy of
+    `row_sort`'s output: where the plan's keys are 4 bytes, (keys, bits_c),
+    the u32 keys [B, L] (dist << bits_c) | row and their column bits, which
+    the native engine reads as they are (`native.greedy_global` with
+    `bits_c`); else (lists, None), the int32 [2, B, L] distances, then the
+    rows.
+    `unpack_lists` makes the (dists, rows) pair of either. `stats`, when
+    given, gets the sort that ran (`sort`: "k13" on the card, "plain" on
+    the CPU) and its key bytes (`key_bytes`)."""
     key_bytes, bits_c = _k13_plan(max(dist.shape[1], 1), dmax)[:2]
     if stats is not None:
         stats.update(sort="k13" if dist.is_cuda else "plain", key_bytes=key_bytes)
     out = _host(row_sort(dist, dmax))
-    if out.ndim == 3:
-        return out[0], out[1]
-    keys = out.view(np.uint32)
-    cd = np.empty(keys.shape, np.int32)
-    np.right_shift(keys, np.uint32(bits_c), out=cd.view(np.uint32))
-    np.bitwise_and(keys, np.uint32((1 << bits_c) - 1), out=keys)
-    return cd, out
+    if key_bytes == 8:
+        return out, None
+    return out.view(np.uint32), bits_c
+
+
+def unpack_lists(lists: np.ndarray, bits_c: int | None) -> tuple[np.ndarray, np.ndarray]:
+    """The host int32 (dists [B, L], rows [B, L]) of `sorted_lists`' output:
+    the u32 keys decoded into two fresh arrays, or the [2, B, L] lists'
+    halves as they are."""
+    if bits_c is None:
+        return lists[0], lists[1]
+    return ((lists >> np.uint32(bits_c)).view(np.int32),
+            (lists & np.uint32((1 << bits_c) - 1)).view(np.int32))
 
 
 #: `l1_topk` takes the dense stripes while B * L stays under this

@@ -18,10 +18,12 @@ them. Then it times, at the cell's shape and at the long-row edge:
   bound: the matrix read once and the output written once over 3.35 TB/s;
 - its plain version's (mean of 2), and `torch.sort` of the same packed
   keys (int32 where they fit 31 bits, else int64) as the yardstick;
-- at the cell's shape, on the host's clock: `sorted_lists` whole (K13, the
-  lists' pageable copy to the host, the split into distances and rows),
-  the copy alone, and the host sort K13 replaces (the matrix's copy, the
-  stable `np.argsort`, `take_along_axis`, the casts).
+- at the cell's shape, on the host's clock: `sorted_lists` whole (K13 and
+  the pageable copy of its u32 keys to the host, which the native engine
+  reads as they are), the copy alone, `unpack_lists` (the keys' split into
+  distances and rows, which only the pair engines need), and the host
+  sort K13 replaces (the matrix's copy, the stable `np.argsort`,
+  `take_along_axis`, the casts).
 
 `--ptxas` prints ptxas's register, shared-memory and spill report first;
 `--quick` stops after the exact checks. The last line of its output is one
@@ -171,6 +173,8 @@ def timings(torch, dev, distance, card: str) -> dict:
             out = distance.row_sort(dist, dmax)
             r["sorted_lists_s"] = wall_s(torch, lambda: distance.sorted_lists(dist, dmax))
             r["copy_s"] = wall_s(torch, lambda: out.cpu())
+            keys, bits_c = distance.sorted_lists(dist, dmax)
+            r["unpack_s"] = wall_s(torch, lambda: distance.unpack_lists(keys, bits_c))
 
             def host_sort():
                 m = dist.cpu().numpy()
@@ -179,8 +183,8 @@ def timings(torch, dev, distance, card: str) -> dict:
 
             r["host_sort_s"] = wall_s(torch, host_sort, reps=1)
             print(f"K13 cell on the host's clock: sorted_lists {r['sorted_lists_s']:.4f} s (the "
-                  f"copy alone {r['copy_s']:.4f} s); the host sort it replaces "
-                  f"{r['host_sort_s']:.3f} s [{card}]", flush=True)
+                  f"copy alone {r['copy_s']:.4f} s); the keys' split {r['unpack_s']:.4f} s; the "
+                  f"host sort it replaces {r['host_sort_s']:.3f} s [{card}]", flush=True)
         res[name] = r
         del dist, keys
         torch.cuda.empty_cache()

@@ -14,7 +14,8 @@ The torch counterpart of `emosaic_tpu/render/norepeat.py`. Two phases:
    over every mesh position (`sharded-exact`); an explicit hybrid keeps
    its precedence over the mesh.
 2. Assignment: best-match-first priority queue with mirror-pair exclusion
-   (render/greedy.py, or the native engine), exactly the worklist
+   (render/greedy.py, or the native engine, which reads the exact-full
+   route's 4-byte sorted keys as they are), exactly the worklist
    semantics of rendering.rs:323-392.
 
 Stats record *output-pixel* coordinates (rendering.rs:357-364), unlike
@@ -29,6 +30,7 @@ import time
 import numpy as np
 import torch
 
+from emosaic_tpu_torch import native
 from emosaic_tpu_torch.monitor import record, span
 from emosaic_tpu_torch.ops import distance as _distance
 from emosaic_tpu_torch.ops.distance import (
@@ -36,6 +38,7 @@ from emosaic_tpu_torch.ops.distance import (
     l1_topk_adaptive,
     l1_topk_hybrid,
     sorted_lists,
+    unpack_lists,
 )
 from emosaic_tpu_torch.ops.refill import refiller_for
 from emosaic_tpu_torch.render.greedy import greedy_global_assign, make_numpy_refill
@@ -71,9 +74,10 @@ def render_nto1_no_repeat(
 
     The outcome's `info` holds the scorer used and its statistics (route,
     certified and fallback rows; the exact-full route's pairs, matrix
-    bytes, its sort, `k13` on the card or `plain`, and the sort's key
-    bytes), the assignment engine with its refill counters and the
-    candidate entries the native engine read (`engine_entries`), the
+    bytes, its sort, `k13` on the card or `plain`, the sort's key bytes,
+    and `lists`: `packed` where the native engine read the sorted keys as
+    they are, else `pair`), the assignment engine with its refill counters
+    and the candidate entries the native engine read (`engine_entries`), the
     seconds of scoring and assignment, and the render's
     stage spans (`monitor.span`). `mesh` (`parallel.make_mesh`) shards the
     exact scoring over it."""
@@ -87,6 +91,7 @@ def render_nto1_no_repeat(
         )
         num_tiles = len(tile_set)
         b, l = blocks.shape[0], lib.shape[0]
+        keys = None  # the exact-full route's sorted u32 keys, where the engine reads them
 
         with span("norepeat.scoring") as scoring:
             if scorer == "hybrid" and b * l > _EXACT_BUDGET:
@@ -111,7 +116,8 @@ def render_nto1_no_repeat(
                 # the full sorted candidate list per block: K10's dense matrix
                 # stays on the device (4 * B * L bytes, inside `l1_block`'s stripe
                 # budget) and K13 sorts every row there on packed (distance, row)
-                # keys; only the sorted lists come to the host. Rows are sorted in
+                # keys; only the sorted lists come to the host, and the native
+                # engine reads 4-byte keys there as they are. Rows are sorted in
                 # full: where every tile is used, a fifth of the blocks read past
                 # their 1024th entry, so a prefix would send them back to refill
                 scorer_used = "exact-full"
@@ -119,8 +125,14 @@ def render_nto1_no_repeat(
                                    "matrix_bytes": 4 * b * l}
                 with span("scoring.dense"):  # K10's stripes, the matrix left on the card
                     dist = l1_block(blocks, lib)
-                with span("scoring.sort"):  # K13, the lists' copy to the host, the split
-                    cd, cr = sorted_lists(dist, 255 * blocks.shape[1], stats=info["scoring"])
+                with span("scoring.sort"):  # K13, the lists' copy to the host
+                    lists, bits_c = sorted_lists(dist, 255 * blocks.shape[1],
+                                                 stats=info["scoring"])
+                    if bits_c is not None and native.available():
+                        keys = lists
+                    else:
+                        cd, cr = unpack_lists(lists, bits_c)
+                info["scoring"]["lists"] = "pair" if keys is None else "packed"
                 del dist
             else:
                 # exact truncated lists from the adaptive certified scorer;
@@ -133,20 +145,33 @@ def render_nto1_no_repeat(
         info["scorer"] = scorer_used
         info["scoring_s"] = scoring.s
         log(f"   scoring ({scorer_used}): {info['scoring_s']:.2f}s")
-        from emosaic_tpu_torch import native
 
         with span("norepeat.to_host") as to_host:
             blocks_h = blocks.cpu().numpy()
             lib_h = lib.cpu().numpy()
         with span("norepeat.engine") as engine:
-            if native.available():
-                refiller = refiller_for(blocks, lib)
-                rows, dists = native.greedy_global(
-                    cd, cr, blocks_h, lib_h, num_tiles,
-                    refill_cb=refiller,
-                    cb_max_batch=refiller.max_batch if refiller else 4096,
-                    stats=info,
+            if not native.available():
+                rows, dists = greedy_global_assign(
+                    cd, cr, l, num_tiles, _counted(make_numpy_refill(blocks_h, lib_h), info)
                 )
+                info["engine"] = "python"
+            else:
+                if keys is not None:
+                    # full lists never run dry, and u32 keys hold 255 * D * L < 2^32:
+                    # L * D is far under the device refill's threshold
+                    assert refiller_for(blocks, lib) is None
+                    refiller = None
+                    rows, dists = native.greedy_global(
+                        keys, None, blocks_h, lib_h, num_tiles, bits_c=bits_c, stats=info
+                    )
+                else:
+                    refiller = refiller_for(blocks, lib)
+                    rows, dists = native.greedy_global(
+                        cd, cr, blocks_h, lib_h, num_tiles,
+                        refill_cb=refiller,
+                        cb_max_batch=refiller.max_batch if refiller else 4096,
+                        stats=info,
+                    )
                 info["engine"] = "native"
                 info["refill_events"] = refiller.n_calls if refiller else 0
                 info["refill_blocks"] = refiller.n_blocks if refiller else 0
@@ -155,11 +180,6 @@ def render_nto1_no_repeat(
                 if refiller is not None and refiller.n_calls:
                     log(f"   device refill events: {refiller.n_calls} ({refiller.n_fused} on K12,"
                         f" {100 * refiller.n_fused / refiller.n_calls:.1f}%)")
-            else:
-                rows, dists = greedy_global_assign(
-                    cd, cr, l, num_tiles, _counted(make_numpy_refill(blocks_h, lib_h), info)
-                )
-                info["engine"] = "python"
         info["assign_s"] = to_host.s + engine.s
         log(f"   assignment: {info['assign_s']:.2f}s")
 

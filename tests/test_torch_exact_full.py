@@ -63,6 +63,8 @@ def test_exact_full_matches_the_plain_reference(monkeypatch, seed, dim, case, en
     pal, src, stack = _scene(seed, dim, case)
     got = _render(pal, src, stack)
     assert got.info["scorer"] == "exact-full" and got.info["engine"] == engine
+    # the native engine reads the sorted u32 keys as they are; the Python one their pair
+    assert got.info["scoring"]["lists"] == {"native": "packed", "python": "pair"}[engine]
     items, image = reference.render(torch.from_numpy(src), torch.from_numpy(pal),
                                     torch.from_numpy(stack), dim, reference.greedy)
     np.testing.assert_array_equal(got.items, items.numpy())
@@ -88,7 +90,8 @@ def test_exact_full_spans_and_counters(monkeypatch, engine):
     key_bytes = 4 if (255 * d).bit_length() + (l - 1).bit_length() <= 32 else 8
     assert key_bytes == 4  # 18 distance bits (D = 768) and 9 row bits (L = 512)
     assert info["scoring"] == {"route": "exact-full", "pairs": b * l, "matrix_bytes": 4 * b * l,
-                               "sort": "plain", "key_bytes": key_bytes}
+                               "sort": "plain", "key_bytes": key_bytes,
+                               "lists": "packed" if engine == "native" else "pair"}
     parts = spans["scoring.dense"]["s"] + spans["scoring.sort"]["s"]
     assert spans["scoring.dense"]["n"] == spans["scoring.sort"]["n"] == 1
     assert spans["norepeat.scoring"]["self_s"] == pytest.approx(
@@ -100,10 +103,12 @@ def test_exact_full_spans_and_counters(monkeypatch, engine):
         assert "engine_entries" not in info
 
 
-def test_exact_full_entries_count_the_skipped_entries():
+@pytest.mark.parametrize("entry", ["pair", "keys"])
+def test_exact_full_entries_count_the_skipped_entries(entry):
     """Two blocks that want the same tile: the later one reads the taken
     tile's row and its mirror before its own; every entry of a full list is
-    counted once."""
+    counted once, by the engine on the (distance, row) pair and on the
+    packed u32 keys (dist << 2) | row alike."""
     if not native.available():
         pytest.skip("the host C++ compiler could not build the native engine")
     pal = np.array([[[10, 10, 10]], [[200, 200, 200]]], np.uint8)  # T = 2, dim = 1
@@ -113,7 +118,11 @@ def test_exact_full_entries_count_the_skipped_entries():
     cr = np.argsort(dist, axis=1, kind="stable").astype(np.int32)
     cd = np.take_along_axis(dist, cr, axis=1)
     stats = {}
-    rows, _ = native.greedy_global(cd, cr, blocks, lib, 2, stats=stats)
+    if entry == "pair":
+        rows, _ = native.greedy_global(cd, cr, blocks, lib, 2, stats=stats)
+    else:
+        keys = (cd.astype(np.uint32) << np.uint32(2)) | cr.astype(np.uint32)
+        rows, _ = native.greedy_global(keys, None, blocks, lib, 2, bits_c=2, stats=stats)
     # block 1 takes row 0; block 0 skips rows 0 and 2 (its mirror), takes row 1
     assert rows.tolist() == [1, 0]
     assert stats["engine_entries"] == 1 + 3

@@ -895,7 +895,7 @@ def test_k13_matches_plain(cuda, b, l, d, key_bytes, chunked):
     plan = _k13_check(dist, 255 * d)
     assert plan[0] == key_bytes and bool(plan[4]) == chunked
     if b * l <= 10**6:
-        cd, cr = distance.sorted_lists(dist, 255 * d)
+        cd, cr = distance.unpack_lists(*distance.sorted_lists(dist, 255 * d))
         m = dist.cpu().numpy()
         order = np.argsort(m, axis=1, kind="stable")
         np.testing.assert_array_equal(cr, order)
@@ -945,7 +945,40 @@ def test_k13_serves_the_exact_full_render(cuda):
     assert ROW_SORT.launches == before + 1
     assert got.info["scorer"] == "exact-full"
     assert got.info["scoring"]["sort"] == "k13" and got.info["scoring"]["key_bytes"] == 4
+    from emosaic_tpu_torch import native
+
+    assert got.info["scoring"]["lists"] == ("packed" if native.available() else "pair")
     want = norepeat.render_nto1_no_repeat(src, tiles, ts, device="cpu", **quiet)
     assert want.info["scoring"]["sort"] == "plain"
     np.testing.assert_array_equal(got.items, want.items)
     np.testing.assert_array_equal(np.asarray(got.image), np.asarray(want.image))
+
+
+def test_k13_keys_feed_the_engine_as_the_pair_does(cuda):
+    """At the `service_m16` cell's shape, [4096, 8192] at D = 768: the
+    native engine on `sorted_lists`' u32 keys from K13 gives the engine on
+    the (distance, row) pair they decode to block for block, with the same
+    entries read; every tile is placed (B = T)."""
+    from emosaic_tpu_torch import native
+
+    if not native.available():
+        pytest.skip("the host C++ compiler could not build the native engine")
+    t, d = 4096, 768
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(t + d)
+    pal = torch.randint(0, 256, (t, d), dtype=torch.uint8, device=cuda, generator=gen)
+    lib = torch.cat([pal, pal.flip(1)])
+    blocks = torch.randint(0, 256, (t, d), dtype=torch.uint8, device=cuda, generator=gen)
+    before = ROW_SORT.launches
+    keys, bits_c = distance.sorted_lists(distance.l1_block(blocks, lib), 255 * d)
+    assert ROW_SORT.launches == before + 1
+    assert keys.dtype == np.uint32 and keys.shape == (t, 2 * t) and bits_c == 13
+    cd, cr = distance.unpack_lists(keys, bits_c)
+    bh, lh = blocks.cpu().numpy(), lib.cpu().numpy()
+    want_stats, got_stats = {}, {}
+    want = native.greedy_global(cd, cr, bh, lh, t, stats=want_stats)
+    got = native.greedy_global(keys, None, bh, lh, t, bits_c=bits_c, stats=got_stats)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got_stats["engine_entries"] == want_stats["engine_entries"]
+    assert (got[0] >= 0).all()

@@ -83,6 +83,54 @@ def test_greedy_global_matches_jax_python_engine(rng, engine, case):
     np.testing.assert_array_equal(port_py[0], want[0])
 
 
+#: (tiles T, blocks, bytes a row, library rows past the 2T of the tiles and
+#: their mirrors): the engine on the u32 keys against the engine on the pair
+#: they decode to. "full": B = T, every tile used, lists read to their end;
+#: "ties": bytes of three levels, so many rows share a distance; "pow2": L =
+#: 2^7, every column bit of the last row set; "pow2+1": L = 2^7 + 1, one
+#: column bit more
+KEY_CASES = {"random": (40, 60, 12, 0), "full": (64, 64, 12, 0), "ties": (50, 50, 3, 0),
+             "pow2": (64, 40, 12, 0), "pow2+1": (64, 40, 12, 1)}
+
+
+@pytest.mark.parametrize("case", sorted(KEY_CASES))
+def test_greedy_global_on_keys_matches_the_pair(rng, engine, case):
+    """The engine on `sorted_lists`' u32 keys (made by K13's plain version
+    on CPU tensors) against the engine on the (distance, row) pair they
+    decode to: the same rows, distances and stats, mirror pairs excluded.
+    Keys take neither a row array nor a refill callback."""
+    t, b, d, extra = KEY_CASES[case]
+    levels = (lambda size: rng.integers(0, 3, size=size) * 127) if case == "ties" else (
+        lambda size: rng.integers(0, 256, size=size))
+    pal = levels((t, d)).astype(np.uint8)
+    lib = np.concatenate([pal, pal[:, ::-1], levels((extra, d)).astype(np.uint8)])
+    blocks = levels((b, d)).astype(np.uint8)
+    dist = np.abs(blocks.astype(np.int32)[:, None] - lib.astype(np.int32)[None]).sum(2)
+    keys, bits_c = distance.sorted_lists(torch.from_numpy(dist.astype(np.int32)), 255 * d)
+    assert keys.dtype == np.uint32 and bits_c == (len(lib) - 1).bit_length()
+    assert bits_c == {"pow2": 7, "pow2+1": 8}.get(case, bits_c)
+    cd, cr = distance.unpack_lists(keys, bits_c)
+    want_stats, got_stats = {}, {}
+    want = native.greedy_global(cd, cr, blocks, lib, t, stats=want_stats)
+    got = native.greedy_global(keys, None, blocks, lib, t, bits_c=bits_c, stats=got_stats)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    for key in ("refill_host_events", "engine_entries"):
+        assert got_stats[key] == want_stats[key]
+    assert got_stats["refill_host_events"] == 0  # full lists never run dry
+    rows = got[0][got[0] >= 0]
+    assert len(rows) == min(b, t)
+    tiles = np.where(rows < 2 * t, rows % t, rows)
+    assert len(set(tiles.tolist())) == len(rows)  # each tile once, in one orientation
+    if case == "ties":
+        assert len(np.unique(dist)) <= 2 * d + 1
+    with pytest.raises(ValueError, match="packed keys"):
+        native.greedy_global(keys, cr, blocks, lib, t, bits_c=bits_c)
+    with pytest.raises(ValueError, match="packed keys"):
+        native.greedy_global(keys, None, blocks, lib, t, bits_c=bits_c,
+                             refill_cb=DeviceRefiller(blocks, lib))
+
+
 def test_greedy_sequence_matches_jax_python_engine(rng, engine):
     blocks, lib, cd, cr = _candidates(rng, 50, 30, 12, 4)
     order = rng.permutation(50).astype(np.int32)

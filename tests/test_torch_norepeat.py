@@ -61,9 +61,12 @@ _NO_REPEAT_STAGES = ("render", "render.prologue", "norepeat.scoring", "norepeat.
 _SCORING_STEPS = ("prepare", "coarse", "rescore", "fallback", "audit")
 
 
-@pytest.mark.parametrize("route", ["exact-full", "adaptive-exact"])
+@pytest.mark.parametrize("route", ["exact-full", "exact-full-u64", "adaptive-exact"])
 @pytest.mark.parametrize("engine", ["native", "python"])
 def test_render_nto1_no_repeat_matches_jax(rng, monkeypatch, route, engine):
+    """Routes as `info["scorer"]` names them, and "exact-full-u64": the
+    sort's plan forced to 8-byte keys, so the native engine takes the
+    (distance, row) pair where it reads the u32 keys otherwise."""
     # 192 blocks, L = 8400 rows of D = 48: past the adaptive scorer's gates
     # (L > 2m and 128-row segments x cap >= m + 1 at m = 1024)
     pal, src = _clustered_scene(rng, 4200, 4, 48, 64)
@@ -72,10 +75,17 @@ def test_render_nto1_no_repeat_matches_jax(rng, monkeypatch, route, engine):
     want = jax_norepeat.render_nto1_no_repeat(src, jts, 8, stack=stack, **quiet)
     if route == "adaptive-exact":
         monkeypatch.setattr(norepeat, "_EXACT_BUDGET", 0)
+    if route == "exact-full-u64":
+        plan = distance._k13_plan
+        monkeypatch.setattr(distance, "_k13_plan", lambda n, dmax: (8, *plan(n, dmax)[1:]))
     if engine == "python":
         monkeypatch.setattr(native, "available", lambda: False)
     got = norepeat.render_nto1_no_repeat(src, ts, 8, device="cpu", stack=stack, **quiet)
-    assert got.info["scorer"] == route and got.info["engine"] == engine
+    assert got.info["scorer"] == route.removesuffix("-u64") and got.info["engine"] == engine
+    if route != "adaptive-exact":
+        packed = route == "exact-full" and engine == "native"
+        assert got.info["scoring"]["key_bytes"] == (4 if route == "exact-full" else 8)
+        assert got.info["scoring"]["lists"] == ("packed" if packed else "pair")
     spans = got.info["spans"]
     assert set(_NO_REPEAT_STAGES) <= set(spans)
     assert got.info["scoring_s"] == spans["norepeat.scoring"]["s"]

@@ -1,6 +1,6 @@
 """K13's contract on the CPU: `row_sort`'s plain version and the host lists
-`sorted_lists` makes of it against `np.argsort(kind="stable")` and
-`take_along_axis`, the launch plan `_k13_plan` (key width, passes, the
+`sorted_lists` makes of it (u32 keys where they fit, decoded by
+`unpack_lists`) against `np.argsort(kind="stable")` and `take_along_axis`, the launch plan `_k13_plan` (key width, passes, the
 long-row path) against the kernel's own checks, and the wrapper's input
 checks. The kernel itself runs in `tests/test_torch_gpu.py` (`cuda`)."""
 
@@ -41,7 +41,13 @@ CASES = {
 def test_sorted_lists_match_the_stable_numpy_argsort(case):
     rows, n, dmax, lo, hi = CASES[case]
     m = _matrix(n + rows, rows, n, lo, hi)
-    cd, cr = D.sorted_lists(torch.from_numpy(m), dmax)
+    lists, bits_c = D.sorted_lists(torch.from_numpy(m), dmax)
+    key_bytes, plan_bits_c = D._k13_plan(n, dmax)[:2]
+    if key_bytes == 4:  # the keys as they came from the sort, and their column bits
+        assert lists.dtype == np.uint32 and lists.shape == m.shape and bits_c == plan_bits_c
+    else:
+        assert lists.dtype == np.int32 and lists.shape == (2, *m.shape) and bits_c is None
+    cd, cr = D.unpack_lists(lists, bits_c)
     want_d, want_r = _numpy_lists(m)
     assert cd.dtype == cr.dtype == np.int32
     np.testing.assert_array_equal(cd, want_d)
@@ -68,7 +74,7 @@ def test_plain_version_lays_out_the_lists_as_k13_writes_them(case):
 
 def test_empty_matrices():
     for shape in ((0, 5), (3, 0)):
-        cd, cr = D.sorted_lists(torch.zeros(shape, dtype=torch.int32), 765)
+        cd, cr = D.unpack_lists(*D.sorted_lists(torch.zeros(shape, dtype=torch.int32), 765))
         assert cd.shape == cr.shape == shape
 
 
