@@ -1,10 +1,12 @@
 // emosaic_tpu_torch native runtime helpers: a copy of the JAX package's
 // native/emosaic_native.cpp, built with the host C++ compiler at first use
-// (emosaic_tpu_torch/native.py). Two changes: a refill callback that returns
-// a negative code aborts the assignment (emosaic_greedy_global_cb returns
-// 2), so an unexpected callback failure is raised by the caller instead of
-// being served by host scans; and the global greedy also reads the card's
-// sorted u32 keys as they are (emosaic_greedy_global_keys).
+// (emosaic_tpu_torch/native.py). Three changes: a refill callback that
+// returns a negative code aborts the assignment (emosaic_greedy_global_cb
+// returns 2), so an unexpected callback failure is raised by the caller
+// instead of being served by host scans; the global greedy also reads the
+// card's sorted u32 keys as they are (emosaic_greedy_global_keys); and both
+// engines report their host masked scans and the entries they read through
+// a trailing `stats` array.
 //
 // The GPU owns every batched kernel (analysis, distance, top-k, composite);
 // what remains host-side is the inherently *sequential* state machine of
@@ -312,6 +314,15 @@ struct Ctx {
     return false;
   }
 
+  // {host masked scans, their seconds, candidate entries read} into
+  // `stats`, when not null
+  void report(double* stats) const {
+    if (stats == nullptr) return;
+    stats[0] = (double)n_refills;
+    stats[1] = refill_secs;
+    stats[2] = (double)n_entries;
+  }
+
   void advance(int64_t b) {
     Stream& s = streams[b];
     ++n_entries;
@@ -370,11 +381,7 @@ int run_greedy_global(Ctx<Lists>& ctx, int64_t B, int64_t num_tiles,
     ctx.streams[b].assigned = true;
     if (ctx.n_unused == 0) break;  // nothing left to assign: skip the drain
   }
-  if (stats != nullptr) {
-    stats[0] = (double)ctx.n_refills;
-    stats[1] = ctx.refill_secs;
-    stats[2] = (double)ctx.n_entries;
-  }
+  ctx.report(stats);
   return 0;
 }
 
@@ -384,12 +391,13 @@ extern "C" {
 
 // In-render no-repeat (reference --no-repeat --greedy): fixed `order`,
 // row-granular exclusion (only the chosen orientation is removed).
+// `stats` is null or double[3], filled as run_greedy_global fills it.
 // Returns 0 on success.
 int emosaic_greedy_sequence(const int32_t* order, const int32_t* cand_d,
                             const int32_t* cand_r, int64_t B, int64_t K,
                             const uint8_t* blocks, const uint8_t* lib,
                             int64_t L, int64_t D, int32_t* out_row,
-                            int32_t* out_dist) {
+                            int32_t* out_dist, double* stats) {
   Ctx<PairLists> ctx{{cand_d, cand_r}, K, blocks, lib, L, D};
   ctx.used.assign(L, 0);
   ctx.n_unused = L;  // row-granular exclusion (no mirror pair here)
@@ -412,6 +420,7 @@ int emosaic_greedy_sequence(const int32_t* order, const int32_t* cand_d,
       }
     }
   }
+  ctx.report(stats);
   return 0;
 }
 

@@ -99,12 +99,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
     i64 = ctypes.c_int64
 
-    lib.emosaic_greedy_sequence.argtypes = [
-        i32p, i32p, i32p, i64, i64, u8p, u8p, i64, i64, i32p, i32p
-    ]
-    lib.emosaic_greedy_sequence.restype = ctypes.c_int
     # the stats out-array: double[3] or None
     f64p = ctypes.POINTER(ctypes.c_double)
+    lib.emosaic_greedy_sequence.argtypes = [
+        i32p, i32p, i32p, i64, i64, u8p, u8p, i64, i64, i32p, i32p, f64p
+    ]
+    lib.emosaic_greedy_sequence.restype = ctypes.c_int
     lib.emosaic_greedy_global.argtypes = [
         i32p, i32p, i64, i64, u8p, u8p, i64, i64, i64, i32p, i32p, f64p
     ]
@@ -132,8 +132,20 @@ def _c(a, dtype):
     return np.ascontiguousarray(a, dtype=dtype)
 
 
-def greedy_sequence(order, cand_d, cand_r, blocks, lib) -> tuple[np.ndarray, np.ndarray]:
-    """Native in-render no-repeat assignment (see render/greedy.py)."""
+def _engine_stats(out_stats, stats: dict | None) -> None:
+    """The engine's three stats slots into `stats`, when given."""
+    if stats is not None:
+        stats.update(refill_host_events=int(out_stats[0]), refill_host_s=out_stats[1],
+                     engine_entries=int(out_stats[2]))
+
+
+def greedy_sequence(
+    order, cand_d, cand_r, blocks, lib, *, stats: dict | None = None
+) -> tuple[np.ndarray, np.ndarray]:
+    """Native in-render no-repeat assignment (see render/greedy.py).
+    `stats`, when given, is filled as `greedy_global` fills it: the host
+    masked scans (`refill_host_events`), their seconds (`refill_host_s`)
+    and the candidate entries read (`engine_entries`)."""
     nl = load()
     b, k = cand_d.shape
     order = _c(order, np.int32)
@@ -143,12 +155,14 @@ def greedy_sequence(order, cand_d, cand_r, blocks, lib) -> tuple[np.ndarray, np.
     lib = _c(lib, np.uint8)
     out_row = np.empty(b, dtype=np.int32)
     out_dist = np.empty(b, dtype=np.int32)
+    out_stats = (ctypes.c_double * 3)() if stats is not None else None
     rc = nl.emosaic_greedy_sequence(
         order, cand_d, cand_r, b, k, blocks, lib,
-        lib.shape[0], lib.shape[1], out_row, out_dist,
+        lib.shape[0], lib.shape[1], out_row, out_dist, out_stats,
     )
     if rc != 0:
         raise RuntimeError(f"emosaic_greedy_sequence rc={rc}")
+    _engine_stats(out_stats, stats)
     return out_row, out_dist
 
 
@@ -242,9 +256,7 @@ def greedy_global(
             raise failed[0]
     if rc != 0:
         raise RuntimeError(f"emosaic_greedy_global rc={rc}")
-    if stats is not None:
-        stats.update(refill_host_events=int(out_stats[0]), refill_host_s=out_stats[1],
-                     engine_entries=int(out_stats[2]))
+    _engine_stats(out_stats, stats)
     return out_row, out_dist
 
 

@@ -18,7 +18,8 @@ kd-tree): two variants exist —
   rendering.rs:387-390 is exactly a priority queue), with a 10-NN refill
   from the live tree when a list is exhausted (rendering.rs:383-385).
 
-A copy of `emosaic_tpu/render/greedy.py` (pure numpy).
+A copy of `emosaic_tpu/render/greedy.py` (pure numpy), with the native
+engine's counters added: `counted` and `greedy_sequence_assign(stats=)`.
 
 Decomposition: candidate lists come from the device top-k scorers
 in one batch; this module runs only the cheap sequential assignment over
@@ -40,6 +41,7 @@ with black tiles for every starved block instead of crashing.
 from __future__ import annotations
 
 import heapq
+import time
 from typing import Callable
 
 import numpy as np
@@ -109,6 +111,8 @@ def greedy_sequence_assign(
     cand_r: np.ndarray,
     num_rows: int,
     refill: RefillFn,
+    *,
+    stats: dict | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """In-render no-repeat: fixed processing order, row-granular exclusion.
 
@@ -117,6 +121,10 @@ def greedy_sequence_assign(
       cand_d/cand_r: [B, K] ascending candidate (distance, library row).
       num_rows: total library rows (2T).
       refill: exact masked re-query for exhausted candidate lists.
+      stats: when given, filled as the native engine fills it: the refill
+        calls (`refill_host_events`), their seconds (`refill_host_s`) and
+        the candidate entries moved past, taken or skipped as used
+        (`engine_entries`).
 
     Returns:
       (chosen_row [B], chosen_dist [B]) int32 indexed by block; row -1 for
@@ -124,8 +132,11 @@ def greedy_sequence_assign(
     """
     b = cand_d.shape[0]
     used = np.zeros(num_rows, dtype=bool)
+    entries = 0
     chosen_row = np.full(b, -1, dtype=np.int32)
     chosen_dist = np.zeros(b, dtype=np.int32)
+    if stats is not None:
+        refill = counted(refill, stats)
     lists = _CandidateLists(cand_d, cand_r, refill)
     for blk in order:
         blk = int(blk)
@@ -135,11 +146,14 @@ def greedy_sequence_assign(
                 break
             d, r = cur
             lists.advance(blk)
+            entries += 1
             if not used[r]:
                 used[r] = True
                 chosen_row[blk] = r
                 chosen_dist[blk] = d
                 break
+    if stats is not None:
+        stats["engine_entries"] = entries
     return chosen_row, chosen_dist
 
 
@@ -181,6 +195,22 @@ def greedy_global_assign(
             if nxt is not None:
                 heapq.heappush(heap, (nxt[0], blk))
     return chosen_row, chosen_dist
+
+
+def counted(refill: RefillFn, stats: dict) -> RefillFn:
+    """`refill` counting its calls and seconds into `stats` as the native
+    engine counts its host masked scans (`refill_host_events`,
+    `refill_host_s`)."""
+    stats.update(refill_host_events=0, refill_host_s=0.0)
+
+    def counted_refill(block_ids, used):
+        t0 = time.perf_counter()
+        out = refill(block_ids, used)
+        stats["refill_host_events"] += 1
+        stats["refill_host_s"] += time.perf_counter() - t0
+        return out
+
+    return counted_refill
 
 
 def make_numpy_refill(blocks: np.ndarray, lib: np.ndarray, k: int = 256) -> RefillFn:

@@ -199,7 +199,14 @@ def render_nto1(
     `match_blocks`, or with `randomize` a seeded choice among the
     near-best, or with `no_repeat` the in-render no-repeat choice. With
     `mesh`, the match and the top-k lists are sharded over it, with the
-    same results."""
+    same results.
+
+    The outcome's `info` holds the render's stage spans (`monitor.span`);
+    with `no_repeat`, also the spans `sequence.scoring` (the top-k lists),
+    `sequence.to_host` and `sequence.engine` under `render.match`, and the
+    engine's counters: its host masked scans (`refill_host_events`), their
+    seconds (`refill_host_s`) and the candidate entries it read
+    (`engine_entries`)."""
     if no_repeat and randomize is not None:
         raise ValueError(
             "no_repeat + randomize is unsupported (the reference deadlocks "
@@ -256,21 +263,26 @@ def render_nto1(
                 dists = np.take_along_axis(cd, pick[:, None], axis=1)[:, 0]
             elif no_repeat:
                 k = min(_GREEDY_TOPK, lib.shape[0])
-                cd, cr = topk(k)
+                with span("sequence.scoring"):
+                    cd, cr = topk(k)
                 # render order: rows in sequence, x shuffled per row
                 order = np.concatenate(
                     [by * htiles + rng.permutation(htiles) for by in range(vtiles)]
                 )
                 from emosaic_tpu_torch import native
 
-                blocks_h, lib_h = blocks.cpu().numpy(), lib.cpu().numpy()
-                if native.available():
-                    rows, dists = native.greedy_sequence(order, cd, cr, blocks_h, lib_h)
-                else:
-                    refill = make_numpy_refill(blocks_h, lib_h)
-                    rows, dists = greedy_sequence_assign(
-                        order, cd, cr, lib.shape[0], refill
-                    )
+                with span("sequence.to_host"):
+                    blocks_h, lib_h = blocks.cpu().numpy(), lib.cpu().numpy()
+                with span("sequence.engine"):
+                    if native.available():
+                        rows, dists = native.greedy_sequence(
+                            order, cd, cr, blocks_h, lib_h, stats=info
+                        )
+                    else:
+                        refill = make_numpy_refill(blocks_h, lib_h)
+                        rows, dists = greedy_sequence_assign(
+                            order, cd, cr, lib.shape[0], refill, stats=info
+                        )
             else:
                 dists, rows = match_blocks(
                     blocks, lib, use_lut=use_lut, metric=metric, hybrid=hybrid, mesh=mesh

@@ -25,7 +25,6 @@ Stats record *output-pixel* coordinates (rendering.rs:357-364), unlike
 from __future__ import annotations
 
 import sys
-import time
 
 import numpy as np
 import torch
@@ -41,7 +40,7 @@ from emosaic_tpu_torch.ops.distance import (
     unpack_lists,
 )
 from emosaic_tpu_torch.ops.refill import refiller_for
-from emosaic_tpu_torch.render.greedy import greedy_global_assign, make_numpy_refill
+from emosaic_tpu_torch.render.greedy import counted, greedy_global_assign, make_numpy_refill
 from emosaic_tpu_torch.render.matched import (
     RenderOutcome,
     finish_render,
@@ -152,7 +151,7 @@ def render_nto1_no_repeat(
         with span("norepeat.engine") as engine:
             if not native.available():
                 rows, dists = greedy_global_assign(
-                    cd, cr, l, num_tiles, _counted(make_numpy_refill(blocks_h, lib_h), info)
+                    cd, cr, l, num_tiles, counted(make_numpy_refill(blocks_h, lib_h), info)
                 )
                 info["engine"] = "python"
             else:
@@ -192,18 +191,3 @@ def render_nto1_no_repeat(
     out.info = info
     return out
 
-
-def _counted(refill, info: dict):
-    """`refill` counting its calls and seconds into `info` as the native
-    engine counts its host masked scans (`refill_host_events`,
-    `refill_host_s`)."""
-    info.update(refill_host_events=0, refill_host_s=0.0)
-
-    def counted(block_ids, used):
-        t0 = time.perf_counter()
-        out = refill(block_ids, used)
-        info["refill_host_events"] += 1
-        info["refill_host_s"] += time.perf_counter() - t0
-        return out
-
-    return counted
