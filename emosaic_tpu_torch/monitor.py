@@ -83,6 +83,14 @@ class span:
         return False
 
 
+def count(name: str, n: int) -> None:
+    """Add `n` to the counter `info[name]` of the record `record` opened in
+    this context; with no record open, nothing."""
+    rec = _RECORD.get()
+    if rec is not None:
+        rec[name] = rec.get(name, 0) + n
+
+
 @contextlib.contextmanager
 def record(info: dict):
     """Open `info` as the record of one render: the spans inside this

@@ -31,6 +31,7 @@ import torch
 
 from emosaic_tpu_torch.ops._kernels import COMPOSE
 from emosaic_tpu_torch.ops.analysis import to_device_u8
+from emosaic_tpu_torch.ops.copies import to_host
 
 
 def augment_stack2d(stack, *, device) -> tuple[torch.Tensor, int]:
@@ -130,7 +131,7 @@ def compose_mosaic(items, stack, *, device) -> np.ndarray:
     aug, ts = augment_stack2d(stack, device=device)
     nby, nbx = items.shape
     band = compose_rows(torch.as_tensor(items, device=aug.device), aug)
-    return band.cpu().numpy().reshape(nby * ts, nbx * ts, 3)
+    return to_host(band).reshape(nby * ts, nbx * ts, 3)
 
 
 def iter_bands(items, stack, band_rows: int = 8, *, device) -> Iterator[np.ndarray]:
@@ -138,7 +139,7 @@ def iter_bands(items, stack, band_rows: int = 8, *, device) -> Iterator[np.ndarr
     items = np.ascontiguousarray(items, dtype=np.int32)
     aug, ts = augment_stack2d(stack, device=device)
     for band in _band_tensors(items, aug, band_rows):
-        yield band.cpu().numpy().reshape(band.shape[0], -1, 3)
+        yield to_host(band).reshape(band.shape[0], -1, 3)
 
 
 def iter_bands_host(
@@ -303,7 +304,7 @@ def tint_blend_band(band, src, y0: int, out_h: int, tint_opacity: float, *, devi
         out_h,
         alpha,
     )
-    return out.cpu().numpy().reshape(band.shape)
+    return to_host(out).reshape(band.shape)
 
 
 def stream_tinted_bands(
@@ -346,7 +347,7 @@ def stream_tinted_bands(
         if src2d is not None:
             band = _tint_band_tensor(band, src2d, y0, out_h, alpha)
         y0 += band.shape[0]
-        yield band.cpu().numpy().reshape(band.shape[0], -1, 3)
+        yield to_host(band).reshape(band.shape[0], -1, 3)
 
 
 def tint_blend(mosaic, src, tint_opacity: float, *, device) -> np.ndarray:

@@ -80,6 +80,8 @@ import numpy as np
 import torch
 
 from emosaic_tpu_torch.monitor import span
+from emosaic_tpu_torch.ops.copies import Assembly
+from emosaic_tpu_torch.ops.copies import to_host as _host
 from emosaic_tpu_torch.ops._kernels import (
     COARSE_TOPCAP,
     L1_ARGMIN,
@@ -194,10 +196,6 @@ def _device_of(blocks, device) -> torch.device:
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-
-
-def _host(x: torch.Tensor) -> np.ndarray:
-    return x.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -553,16 +551,18 @@ def l1_topk_stripes(blocks, lib, k: int, *, device=None):
     blocks, lib = _as_u8(blocks), _as_u8(lib)
     b, l = blocks.shape[0], lib.shape[0]
     kk = min(k, l)
-    out_d = np.empty((b, kk), np.int32)
-    out_r = np.empty((b, kk), np.int32)
+    host = Assembly(dev)
+    out_d = host.empty((b, kk), torch.int32)
+    out_r = host.empty((b, kk), torch.int32)
     if b and kk:
         x, t = blocks.to(dev), lib.to(dev)
         bc = _stripe_rows(l)
         for b0 in range(0, b, bc):
             dd, rr = _topk_rows(l1_block(x[b0 : b0 + bc], t), kk)
-            out_d[b0 : b0 + bc] = _host(dd)
-            out_r[b0 : b0 + bc] = _host(rr)
-    return _pad_topk(out_d, out_r, b, k, kk)
+            host.put(out_d[b0 : b0 + bc], dd)
+            host.put(out_r[b0 : b0 + bc], rr)
+    host.wait()
+    return _pad_topk(out_d.numpy(), out_r.numpy(), b, k, kk)
 
 
 def l1_argmin_stripes(
@@ -609,12 +609,14 @@ def l1_dist_matrix(blocks, lib, *, device=None) -> np.ndarray:
     dev = _device_of(blocks, device)
     blocks, lib = _as_u8(blocks), _as_u8(lib)
     b, l = blocks.shape[0], lib.shape[0]
-    out = np.empty((b, l), np.int32)
+    host = Assembly(dev)
+    out = host.empty((b, l), torch.int32)
     x, t = blocks.to(dev), lib.to(dev)
     bc = _stripe_rows(l)
     for b0 in range(0, b, bc):
-        out[b0 : b0 + bc] = _host(l1_block(x[b0 : b0 + bc], t))
-    return out
+        host.put(out[b0 : b0 + bc], l1_block(x[b0 : b0 + bc], t))
+    host.wait()
+    return out.numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -729,11 +731,11 @@ def sorted_lists(dist: torch.Tensor, dmax: int, *,
                  stats: dict | None = None) -> tuple[np.ndarray, int | None]:
     """The full sorted candidate lists of the matrix `dist` (int32 [B, L],
     entries in [0, dmax]) as they come to the host in one copy of
-    `row_sort`'s output: where the plan's keys are 4 bytes, (keys, bits_c),
-    the u32 keys [B, L] (dist << bits_c) | row and their column bits, which
-    the native engine reads as they are (`native.greedy_global` with
-    `bits_c`); else (lists, None), the int32 [2, B, L] distances, then the
-    rows.
+    `row_sort`'s output (`copies.to_host`): where the plan's keys are 4
+    bytes, (keys, bits_c), the u32 keys [B, L] (dist << bits_c) | row and
+    their column bits, which the native engine reads as they are
+    (`native.greedy_global` with `bits_c`); else (lists, None), the int32
+    [2, B, L] distances, then the rows.
     `unpack_lists` makes the (dists, rows) pair of either. `stats`, when
     given, gets the sort that ran (`sort`: "k13" on the card, "plain" on
     the CPU) and its key bytes (`key_bytes`)."""
@@ -935,17 +937,20 @@ def l1_topk_twolevel(blocks, lib, k: int, *, device=None):
     if kk > min(l, nseg * _TL_CAP) or b == 0:
         return l1_topk_stripes(blocks, lib, k, device=dev)
     x, t = blocks.to(dev), lib.to(dev)
-    out_d = np.empty((b, kk), np.int32)
-    out_r = np.empty((b, kk), np.int32)
-    ok = np.empty(b, bool)
+    host = Assembly(dev)
+    out_d = host.empty((b, kk), torch.int32)
+    out_r = host.empty((b, kk), torch.int32)
+    ok = host.empty((b,), torch.bool)
     bc = _twolevel_rows(nseg, _TL_CAP)
     for b0 in range(0, b, bc):
         sel, good = _twolevel_keys(x[b0 : b0 + bc], t, kk, _TL_CAP)
         dd, rr = _unkey(sel)
-        out_d[b0 : b0 + bc] = _host(dd)
-        out_r[b0 : b0 + bc] = _host(rr)
-        ok[b0 : b0 + bc] = _host(good)
-    bad = np.flatnonzero(~ok)
+        host.put(out_d[b0 : b0 + bc], dd)
+        host.put(out_r[b0 : b0 + bc], rr)
+        host.put(ok[b0 : b0 + bc], good)
+    host.wait()
+    out_d, out_r = out_d.numpy(), out_r.numpy()
+    bad = np.flatnonzero(~ok.numpy())
     out_d, out_r = _stripe_fallback(out_d, out_r, bad, x, t, kk, device=dev)
     return _pad_topk(out_d, out_r, b, k, kk)
 
@@ -1468,15 +1473,17 @@ def _run_block_slices(x, b_slice: int, kk: int, run_slice):
     """Drive `run_slice` over b_slice-row windows of x and assemble
     (dists, rows, ok) on the host."""
     b = x.shape[0]
-    out_d = np.empty((b, kk), np.int32)
-    out_r = np.empty((b, kk), np.int32)
-    ok_all = np.empty(b, bool)
+    host = Assembly(x.device)
+    out_d = host.empty((b, kk), torch.int32)
+    out_r = host.empty((b, kk), torch.int32)
+    ok_all = host.empty((b,), torch.bool)
     for s0 in range(0, b, b_slice):
         dists, rows, ok = run_slice(x[s0 : s0 + b_slice])
-        out_d[s0 : s0 + b_slice] = _host(dists)
-        out_r[s0 : s0 + b_slice] = _host(rows)
-        ok_all[s0 : s0 + b_slice] = _host(ok)
-    return out_d, out_r, ok_all
+        host.put(out_d[s0 : s0 + b_slice], dists)
+        host.put(out_r[s0 : s0 + b_slice], rows)
+        host.put(ok_all[s0 : s0 + b_slice], ok)
+    host.wait()
+    return out_d.numpy(), out_r.numpy(), ok_all.numpy()
 
 
 def _ad_prepare(lib, d: int, b: int | None = None, k: int | None = None, *, device=None):

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from emosaic_tpu_torch.monitor import record, span
+from emosaic_tpu_torch.ops import copies
 from emosaic_tpu_torch.ops.analysis import source_blocks, to_device_u8
 from emosaic_tpu_torch.ops.composite import compose_mosaic
 from emosaic_tpu_torch.ops.distance import (
@@ -164,7 +165,7 @@ def match_blocks(
             raise ValueError("LUT path requires mode 1 and a small-enough library")
         lut = build_l1_lut(lib, device=blocks.device)
         dist, row = lut_match(blocks, lut)
-        return dist.cpu().numpy(), row.cpu().numpy()
+        return copies.to_host(dist), copies.to_host(row)
     # Dedup identical query blocks before the dense kernel (sources repeat
     # colours heavily). Sample first: a full unique over 16M rows isn't free.
     if b > 8192:
@@ -173,9 +174,9 @@ def match_blocks(
         if est < 0.5:
             uniq, inverse = torch.unique(blocks, dim=0, return_inverse=True)
             du, ru = l1_argmin(uniq, lib)
-            return du[inverse].cpu().numpy(), ru[inverse].cpu().numpy()
+            return copies.to_host(du[inverse]), copies.to_host(ru[inverse])
     dist, row = l1_argmin(blocks, lib)
-    return dist.cpu().numpy(), row.cpu().numpy()
+    return copies.to_host(dist), copies.to_host(row)
 
 
 def render_nto1(
@@ -272,7 +273,7 @@ def render_nto1(
                 from emosaic_tpu_torch import native
 
                 with span("sequence.to_host"):
-                    blocks_h, lib_h = blocks.cpu().numpy(), lib.cpu().numpy()
+                    blocks_h, lib_h = copies.to_host(blocks), copies.to_host(lib)
                 with span("sequence.engine"):
                     if native.available():
                         rows, dists = native.greedy_sequence(

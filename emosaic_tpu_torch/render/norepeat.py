@@ -31,6 +31,7 @@ import torch
 
 from emosaic_tpu_torch import native
 from emosaic_tpu_torch.monitor import record, span
+from emosaic_tpu_torch.ops import copies
 from emosaic_tpu_torch.ops import distance as _distance
 from emosaic_tpu_torch.ops.distance import (
     l1_block,
@@ -146,8 +147,7 @@ def render_nto1_no_repeat(
         log(f"   scoring ({scorer_used}): {info['scoring_s']:.2f}s")
 
         with span("norepeat.to_host") as to_host:
-            blocks_h = blocks.cpu().numpy()
-            lib_h = lib.cpu().numpy()
+            blocks_h, lib_h = copies.to_host(blocks), copies.to_host(lib)
         with span("norepeat.engine") as engine:
             if not native.available():
                 rows, dists = greedy_global_assign(
