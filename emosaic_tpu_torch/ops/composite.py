@@ -29,6 +29,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from emosaic_tpu_torch.monitor import span
 from emosaic_tpu_torch.ops._kernels import COMPOSE
 from emosaic_tpu_torch.ops.analysis import to_device_u8
 from emosaic_tpu_torch.ops.copies import to_host
@@ -126,9 +127,11 @@ def compose_mosaic(items, stack, *, device) -> np.ndarray:
 
     items: [nby, nbx] int32 signed 1-based ids (negative = flipped, 0 =
     black); stack: [T, ts, ts, 3] uint8 prepared tile images. Returns the
-    [nby*ts, nbx*ts, 3] uint8 mosaic on the host."""
+    [nby*ts, nbx*ts, 3] uint8 mosaic on the host. The stack's way to the
+    device (`augment_stack2d`) is the span `compose.stack`."""
     items = np.ascontiguousarray(items, dtype=np.int32)
-    aug, ts = augment_stack2d(stack, device=device)
+    with span("compose.stack"):
+        aug, ts = augment_stack2d(stack, device=device)
     nby, nbx = items.shape
     band = compose_rows(torch.as_tensor(items, device=aug.device), aug)
     return to_host(band).reshape(nby * ts, nbx * ts, 3)

@@ -271,7 +271,7 @@ def _k1_plan(b: int, l: int, d: int, sms: int) -> tuple[int, int, int, int]:
 
 
 def _l1_argmin_cuda(
-    blocks: torch.Tensor, lib: torch.Tensor
+    blocks: torch.Tensor, lib: torch.Tensor, stats: dict | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     b, d = blocks.shape
     l = lib.shape[0]
@@ -281,6 +281,9 @@ def _l1_argmin_cuda(
         return dist, row
     sms = torch.cuda.get_device_properties(blocks.device).multi_processor_count
     dw, _, nsplit, per = _k1_plan(b, l, d, sms)
+    if stats is not None:
+        stats["k1"] = {"path": "reg" if dw <= _K1_REG_WORDS else "staged",
+                       "width_words": dw, "splits": nsplit, "tiles_per_split": per}
     q = _pad_words(blocks, 4 * dw, 16)
     t = _pad_words(lib, 4 * dw, 16)
     keys = torch.empty((b,), dtype=torch.int64, device=blocks.device)
@@ -303,7 +306,7 @@ def _l1_argmin_cuda(
 
 
 def l1_argmin(
-    blocks: torch.Tensor, lib: torch.Tensor
+    blocks: torch.Tensor, lib: torch.Tensor, *, stats: dict | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact L1 nearest library row per block.
 
@@ -319,7 +322,10 @@ def l1_argmin(
     A CUDA tensor goes to K1 (`csrc/l1_argmin.cu`) for every D the modes
     produce; a CPU tensor to `l1_argmin_ref`. A library over the device
     budget streams in banks through `l1_topk_streamed` with k = 1, which
-    keeps the lowest-row rule through the cross-bank merge.
+    keeps the lowest-row rule through the cross-bank merge. Where K1 runs,
+    `stats` (a dict) gets its launch shape under `k1`: `path` ("reg" or
+    "staged"), `width_words` (the padded row), `splits` (of the library)
+    and `tiles_per_split`, as `_k1_plan` gives them.
     """
     if blocks.dtype != torch.uint8 or lib.dtype != torch.uint8:
         raise TypeError(f"l1_argmin takes uint8, got {blocks.dtype}/{lib.dtype}")
@@ -343,7 +349,7 @@ def l1_argmin(
         return l1_argmin_ref(blocks, lib)
     if blocks.device.type != "cuda":
         raise ValueError(f"unsupported device {blocks.device}")
-    return _l1_argmin_cuda(blocks, lib)
+    return _l1_argmin_cuda(blocks, lib, stats)
 
 
 # the JAX package's pure-XLA argmin is the chunked scan that

@@ -89,7 +89,8 @@ def start_render(source_img, tile_set, tile_size, log, *, device, check_tiles=Fa
         insufficient_tiles_check(htiles * vtiles, len(tile_set))
     with span("render.prologue"):
         blocks = source_blocks(source_img, dim, device=device)  # [B, 3N], y-major
-        lib = build_library(to_device_u8(tile_set.palettes, device))  # [2T, 3N]
+        with span("prologue.library"):  # the palettes to the device and their mirrors
+            lib = build_library(to_device_u8(tile_set.palettes, device))  # [2T, 3N]
     return dim, htiles, vtiles, blocks, lib
 
 
@@ -135,6 +136,7 @@ def match_blocks(
     metric: str = "l1",
     hybrid: bool = False,
     mesh=None,
+    stats: dict | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Match on the blocks' device: the squared-L2 argmin (`metric="l2"`),
     the hybrid (`hybrid=True`, modes above 1), or the exact L1 match: the
@@ -147,22 +149,33 @@ def match_blocks(
     bit-identical to the single-device kernels; the l2 and hybrid modes,
     an automatic mode-1 LUT and an explicit `use_lut="always"` stay
     single-device, as in the JAX package. Returns host (dist [B] int32,
-    row [B] int32)."""
-    if metric == "l2":
-        return l2_argmin(blocks, lib)
-    if hybrid and blocks.shape[1] > 3:
-        return l1_argmin_hybrid(blocks, lib)
+    row [B] int32).
+
+    `stats` (a dict) gets the match's record: `route` ("lut", "argmin",
+    "argmin_dedup", "l2", "hybrid" or "mesh"), `blocks` B, `scored` (the
+    rows the argmin scored, the distinct ones after the dedup), `rows` L,
+    `width` D, and from `l1_argmin` K1's launch shape `k1` where K1 runs."""
     b, d = blocks.shape
+    stats = {} if stats is None else stats
+    stats.update(blocks=b, scored=b, rows=lib.shape[0], width=d)
+    if metric == "l2":
+        stats["route"] = "l2"
+        return l2_argmin(blocks, lib)
+    if hybrid and d > 3:
+        stats["route"] = "hybrid"
+        return l1_argmin_hybrid(blocks, lib)
     lut_ok = d == 3 and lib.shape[0] <= MAX_ROWS
     lut_auto = use_lut == "auto" and lut_ok and b >= _LUT_MIN_BLOCKS
     if mesh is not None and use_lut != "always" and not lut_auto:
         # mode-1 runs keep the LUT under a mesh (the same result, faster)
         from emosaic_tpu_torch.parallel import sharded_l1_argmin
 
+        stats["route"] = "mesh"
         return sharded_l1_argmin(blocks, lib, mesh)
     if use_lut == "always" or lut_auto:
         if not lut_ok:
             raise ValueError("LUT path requires mode 1 and a small-enough library")
+        stats["route"] = "lut"
         lut = build_l1_lut(lib, device=blocks.device)
         dist, row = lut_match(blocks, lut)
         return copies.to_host(dist), copies.to_host(row)
@@ -173,9 +186,11 @@ def match_blocks(
         est = len(torch.unique(sample, dim=0)) / len(sample)
         if est < 0.5:
             uniq, inverse = torch.unique(blocks, dim=0, return_inverse=True)
-            du, ru = l1_argmin(uniq, lib)
+            stats.update(route="argmin_dedup", scored=uniq.shape[0])
+            du, ru = l1_argmin(uniq, lib, stats=stats)
             return copies.to_host(du[inverse]), copies.to_host(ru[inverse])
-    dist, row = l1_argmin(blocks, lib)
+    stats["route"] = "argmin"
+    dist, row = l1_argmin(blocks, lib, stats=stats)
     return copies.to_host(dist), copies.to_host(row)
 
 
@@ -203,6 +218,7 @@ def render_nto1(
     same results.
 
     The outcome's `info` holds the render's stage spans (`monitor.span`);
+    the match of `match_blocks` records itself under `match` (its `stats`);
     with `no_repeat`, also the spans `sequence.scoring` (the top-k lists),
     `sequence.to_host` and `sequence.engine` under `render.match`, and the
     engine's counters: its host masked scans (`refill_host_events`), their
@@ -285,8 +301,10 @@ def render_nto1(
                             order, cd, cr, lib.shape[0], refill, stats=info
                         )
             else:
+                info["match"] = {}
                 dists, rows = match_blocks(
-                    blocks, lib, use_lut=use_lut, metric=metric, hybrid=hybrid, mesh=mesh
+                    blocks, lib, use_lut=use_lut, metric=metric, hybrid=hybrid, mesh=mesh,
+                    stats=info["match"],
                 )
         # stats_step=dim: source-pixel coords (rendering.rs:211-214)
         out = finish_render(

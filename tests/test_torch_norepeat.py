@@ -56,8 +56,9 @@ def _same(got, want, ts=8):
 
 
 #: the stage spans of every no-repeat render, and the adaptive scorer's steps
-_NO_REPEAT_STAGES = ("render", "render.prologue", "norepeat.scoring", "norepeat.to_host",
-                     "norepeat.engine", "render.stats", "render.compose")
+_NO_REPEAT_STAGES = ("render", "render.prologue", "prologue.library", "norepeat.scoring",
+                     "norepeat.to_host", "norepeat.engine", "render.stats", "render.compose",
+                     "compose.stack")
 _SCORING_STEPS = ("prepare", "coarse", "rescore", "fallback", "audit")
 
 

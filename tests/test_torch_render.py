@@ -89,12 +89,19 @@ def test_render_nto1_records_its_stages(rng, monkeypatch, route, engine, compose
         src, ts, 8, device="cpu", stack=stack, compose=compose, log=lambda *a: None,
         randomize=10.0 if route == "randomize" else None, no_repeat=route == "greedy",
     )
-    want = {"render", "render.prologue", "render.match", "render.stats"}
+    want = {"render", "render.prologue", "prologue.library", "render.match", "render.stats"}
     # the in-render no-repeat route's stages, under render.match
     seq = {"sequence.scoring", "sequence.to_host", "sequence.engine"} if route == "greedy" else set()
-    assert set(got.info["spans"]) == want | seq | ({"render.compose"} if compose else set())
+    # the library's and the stack's way to the device, under render.prologue
+    # and render.compose
+    inner = seq | {"prologue.library", "compose.stack"}
+    assert set(got.info["spans"]) == (want | seq
+                                      | ({"render.compose", "compose.stack"} if compose else set()))
     spans = got.info["spans"]
     assert all(e["n"] == 1 and 0 <= e["self_s"] <= e["s"] for e in spans.values())
     assert spans["render"]["s"] >= sum(spans[k]["s"] for k in spans
-                                       if k != "render" and k not in seq)
+                                       if k != "render" and k not in inner)
     assert spans["render.match"]["s"] >= sum(spans[k]["s"] for k in seq)
+    assert spans["render.prologue"]["s"] >= spans["prologue.library"]["s"]
+    if compose:
+        assert spans["render.compose"]["s"] >= spans["compose.stack"]["s"]
