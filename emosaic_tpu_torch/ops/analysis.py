@@ -13,16 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-
-def to_device_u8(x, device) -> torch.Tensor:
-    """A uint8 array or tensor as a tensor on `device`. Read-only or
-    strided host arrays (broadcast views, decoded images) are copied."""
-    if not isinstance(x, torch.Tensor):
-        a = np.ascontiguousarray(x, dtype=np.uint8)
-        x = torch.from_numpy(a if a.flags.writeable else a.copy())
-    if x.dtype != torch.uint8:
-        raise TypeError(f"expected uint8, got {x.dtype}")
-    return x.to(device)
+from emosaic_tpu_torch.ops.copies import to_device_u8
 
 
 def analyse_batch(tiles, dim: int, *, device) -> torch.Tensor:

@@ -31,14 +31,14 @@ import torch
 
 from emosaic_tpu_torch.monitor import span
 from emosaic_tpu_torch.ops._kernels import COMPOSE
-from emosaic_tpu_torch.ops.analysis import to_device_u8
-from emosaic_tpu_torch.ops.copies import to_host
+from emosaic_tpu_torch.ops.copies import to_device_kept, to_device_u8, to_host
 
 
 def augment_stack2d(stack, *, device) -> tuple[torch.Tensor, int]:
     """[T, ts, ts, 3] uint8 -> [2T+1, ts, ts*3] uint8 on `device`:
-    originals, mirrored copies, and a black row for unassigned blocks."""
-    stack = to_device_u8(stack, device)
+    originals, mirrored copies, and a black row for unassigned blocks.
+    The caller keeps `stack` across renders (`to_device_kept`)."""
+    stack = to_device_kept(stack, device)
     if stack.dim() != 4 or stack.shape[3] != 3:
         raise ValueError(f"expected [T,ts,ts,3] uint8, got {tuple(stack.shape)}")
     t, ts = stack.shape[0], stack.shape[1]

@@ -34,7 +34,7 @@ import torch
 
 from emosaic_tpu_torch.monitor import record, span
 from emosaic_tpu_torch.ops import copies
-from emosaic_tpu_torch.ops.analysis import source_blocks, to_device_u8
+from emosaic_tpu_torch.ops.analysis import source_blocks
 from emosaic_tpu_torch.ops.composite import compose_mosaic
 from emosaic_tpu_torch.ops.distance import (
     build_library,
@@ -90,7 +90,7 @@ def start_render(source_img, tile_set, tile_size, log, *, device, check_tiles=Fa
     with span("render.prologue"):
         blocks = source_blocks(source_img, dim, device=device)  # [B, 3N], y-major
         with span("prologue.library"):  # the palettes to the device and their mirrors
-            lib = build_library(to_device_u8(tile_set.palettes, device))  # [2T, 3N]
+            lib = build_library(copies.to_device_kept(tile_set.palettes, device))  # [2T, 3N]
     return dim, htiles, vtiles, blocks, lib
 
 

@@ -1,21 +1,27 @@
 """`ops/copies.py`, the route of a device-to-host copy: the arrays it hands
 on, the size rule that sends a copy to page-locked memory, the counters
-it adds to a render's record, and the call sites that go through it.
+it adds to a render's record, and the call sites that go through it; and
+the upload of a kept host array (`to_device_kept`): its registration,
+once per array, its undoing when the array is freed, its fallbacks and
+its two call sites.
 
 On the CPU the page-locked route runs with plain memory in place of the
-cache's blocks (`landed`), so its copies, views and counters are checked
-here; the tests marked `cuda` hold the real route on the card to the
-plain one. This file imports neither jax nor the JAX package:
+cache's blocks (`landed`), and the kept uploads with a stand-in for the
+libcuda's registration (`kept`), so their copies, views and counters are
+checked here; the tests marked `cuda` hold the real route on the card to
+the plain one. This file imports neither jax nor the JAX package:
 
     python -m pytest --noconftest tests/test_torch_copies.py -q
 """
+
+import gc
 
 import numpy as np
 import pytest
 import torch
 
 from emosaic_tpu_torch import monitor
-from emosaic_tpu_torch.ops import composite, copies, distance
+from emosaic_tpu_torch.ops import analysis, composite, copies, distance
 from emosaic_tpu_torch.render import matched, norepeat
 from emosaic_tpu_torch.tiles.tileset import TileSet
 
@@ -225,6 +231,225 @@ def test_renders_give_the_same_outputs_on_the_landed_route(request, render):
     got = RENDERS[render](*scene, "cpu")
     np.testing.assert_array_equal(got.items, want.items)
     np.testing.assert_array_equal(got.image, want.image)
+
+
+# ---------------------------------------------------------------------------
+# Uploads of kept host arrays
+# ---------------------------------------------------------------------------
+
+
+class FakePages:
+    """Stands in for libcuda's registration: records each call, refuses
+    a range that overlaps one it holds, and fails every call if told to."""
+
+    def __init__(self, fail=False):
+        self.fail = fail
+        self.live = {}  # address -> bytes
+        self.calls = []  # (what, address, bytes)
+
+    def register(self, ptr, nbytes, device):
+        self.calls.append(("register", ptr, nbytes))
+        if self.fail or any(p < ptr + nbytes and ptr < p + n for p, n in self.live.items()):
+            return False
+        self.live[ptr] = nbytes
+        return True
+
+    def unregister(self, ptr, device):
+        self.calls.append(("unregister", ptr, self.live.pop(ptr, None)))
+        return True
+
+    def registered(self):
+        return [(p, n) for what, p, n in self.calls if what == "register"]
+
+
+def _use_pages(monkeypatch, fail=False, size_rule=True):
+    pages = FakePages(fail)
+    monkeypatch.setattr(copies, "_PAGES", pages)
+    monkeypatch.setattr(copies, "_REGISTERED", {})
+    if size_rule:  # the card's size rule on any device (uploads only: no copy to the host)
+        monkeypatch.setattr(copies, "_page_locked", lambda device, nbytes: nbytes >= BIG)
+    return pages
+
+
+@pytest.fixture
+def kept(monkeypatch):
+    """Registrations that succeed, and the card's size rule on the CPU."""
+    return _use_pages(monkeypatch)
+
+
+def _host(n, seed=0):
+    return np.random.default_rng(seed).integers(0, 256, size=n, dtype=np.uint8)
+
+
+def test_a_kept_array_is_registered_once_over_many_uploads(kept):
+    a = _host(3 * BIG + 5).reshape(-1, 1)
+    info = {}
+    with monitor.record(info):
+        outs = [copies.to_device_kept(x, "cpu") for x in (a, a, a.reshape(-1), a[:], a)]
+    assert kept.registered() == [(a.ctypes.data, a.nbytes)]
+    assert info["host_registers"] == 1
+    assert info["h2d_bytes"] == info["h2d_pinned_bytes"] == 5 * a.nbytes
+    for out in outs:
+        assert out.dtype == torch.uint8 and out.numpy().tobytes() == a.tobytes()
+
+
+def test_a_cpu_tensor_and_its_array_views_register_once(kept):
+    t = torch.from_numpy(_host(BIG, 1))
+    for x in (t, t.numpy(), t.numpy(), t.view(-1, 64), t):
+        assert torch.equal(copies.to_device_kept(x, "cpu").reshape(-1), t)
+    assert kept.registered() == [(t.data_ptr(), BIG)]
+    ptr = t.data_ptr()
+    del t, x
+    gc.collect()
+    assert kept.calls[-1] == ("unregister", ptr, BIG) and not kept.live
+    assert not copies._REGISTERED
+
+
+def test_a_freed_array_is_unregistered_and_its_address_registers_again(kept):
+    buf = bytearray(2 * BIG)
+    a = np.frombuffer(buf, dtype=np.uint8)
+    ptr = a.ctypes.data
+    copies.to_device_kept(a, "cpu")
+    copies.to_device_kept(a, "cpu")
+    assert kept.calls == [("register", ptr, 2 * BIG)]
+    del a
+    gc.collect()
+    assert kept.calls[-1] == ("unregister", ptr, 2 * BIG)
+    assert not kept.live and not copies._REGISTERED
+    b = np.frombuffer(buf, dtype=np.uint8)  # a new array at the same address
+    buf[:4] = b"\x01\x02\x03\x04"
+    info = {}
+    with monitor.record(info):
+        out = copies.to_device_kept(b, "cpu")
+    assert info["host_registers"] == 1 and kept.live == {ptr: 2 * BIG}
+    assert out[:5].tolist() == [1, 2, 3, 4, 0]
+
+
+def test_a_view_of_a_kept_array_is_unregistered_with_its_base_only(kept):
+    base = _host(4 * BIG, 2)
+    view = base[BIG:]
+    copies.to_device_kept(view, "cpu")
+    ptr = view.ctypes.data
+    del view
+    gc.collect()
+    assert kept.live == {ptr: 3 * BIG}  # the base still holds the memory
+    del base
+    gc.collect()
+    assert not kept.live
+
+
+def test_a_failed_registration_falls_back_to_the_pageable_upload(monkeypatch):
+    pages = _use_pages(monkeypatch, fail=True)
+    a = _host(BIG + 1, 3)
+    info = {}
+    with monitor.record(info):
+        got = copies.to_device_kept(a, "meta")  # an upload: counted as one
+        again = copies.to_device_kept(a, "cpu")
+    assert got.device.type == "meta" and tuple(got.shape) == a.shape
+    assert again.numpy().tobytes() == a.tobytes()
+    assert pages.registered() == [(a.ctypes.data, a.nbytes)] * 2  # tried each time
+    assert info["h2d_bytes"] == a.nbytes and "h2d_pinned_bytes" not in info
+    assert info["host_registers"] == 0
+    assert not copies._REGISTERED
+
+
+def _plain_cases():
+    """(name, array) that take `to_device_u8` whatever the target."""
+    big = _host(4 * BIG, 4)
+    ro = big.copy()
+    ro.flags.writeable = False
+    return {
+        "small": big[: BIG - 1],
+        "read_only": ro,
+        "strided": big[::2],
+        "transposed": big.reshape(64, -1).T,
+        "broadcast": np.broadcast_to(big[:1024], (BIG // 1024 + 1, 1024)),
+        "int32": big.view(np.int32),
+        "list": big[:16].tolist(),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_plain_cases()))
+def test_arrays_outside_the_rule_take_the_plain_path(kept, name):
+    x = _plain_cases()[name]
+    assert copies._keepable(x, torch.device("cuda")) is None
+    info = {}
+    with monitor.record(info):
+        out = copies.to_device_kept(x, "meta")
+        got = copies.to_device_kept(x, "cpu")
+    want = analysis.to_device_u8(x, "cpu")
+    assert kept.calls == [] and "host_registers" not in info
+    assert tuple(out.shape) == tuple(want.shape) and torch.equal(got, want)
+    assert info["h2d_bytes"] == want.nbytes and "h2d_pinned_bytes" not in info
+
+
+@pytest.mark.parametrize("device,keepable", [
+    ("cuda", True), ("cuda:1", True), ("cpu", False), ("meta", False)])
+def test_the_kept_route_takes_cuda_targets_only(monkeypatch, device, keepable):
+    """The real size rule: a CPU target, or any other, uploads nothing to
+    register for."""
+    pages = _use_pages(monkeypatch, size_rule=False)
+    a = _host(BIG, 5)
+    assert (copies._keepable(a, torch.device(device)) is not None) is keepable
+    assert (copies._keepable(a[1:], torch.device(device)) is not None) is False
+    if not keepable:
+        copies.to_device_kept(a, device)
+        assert pages.calls == []
+
+
+def test_the_counters_add_up(kept):
+    a, photo = _host(2 * BIG, 6), _host((512, 512, 3), 7)
+    ro = a.copy()
+    ro.flags.writeable = False
+    info = {}
+    with monitor.record(info):
+        copies.to_device_kept(a, "meta")
+        copies.to_device_kept(a, "meta")
+        copies.to_device_u8(photo, "meta")
+        analysis.source_blocks(photo, 4, device="meta")
+        copies.to_device_kept(ro, "meta")
+        copies.to_device_kept(a, "cpu")  # registered memory, on the CPU
+        copies.to_device_u8(photo, "cpu")  # nothing crosses
+    assert info["h2d_pinned_bytes"] == 3 * a.nbytes
+    assert info["h2d_bytes"] == 3 * a.nbytes + 2 * photo.nbytes + ro.nbytes
+    assert info["host_registers"] == 1 and len(kept.registered()) == 1
+    copies.to_device_kept(a, "meta")  # no record open: nothing counted
+    copies.to_device_u8(photo, "meta")
+    assert info["h2d_bytes"] == 3 * a.nbytes + 2 * photo.nbytes + ro.nbytes
+
+
+def test_source_blocks_never_registers(monkeypatch):
+    """The photo is per-request data: even past the size rule it is
+    uploaded as it is, on any device."""
+    pages = _use_pages(monkeypatch)
+    monkeypatch.setattr(copies, "_page_locked", lambda device, nbytes: True)
+    photo = _host((256, 256, 3), 8)
+    for device in ("cpu", "meta"):
+        analysis.source_blocks(photo, 4, device=device)
+    assert pages.calls == []
+
+
+@pytest.mark.parametrize("render", sorted(RENDERS))
+def test_renders_register_the_palettes_and_the_stack_only(request, monkeypatch, render):
+    """Every copy past the size rule, on the `landed` route both ways."""
+    scene = _scene(4)
+    want = RENDERS[render](*scene, "cpu")
+    request.getfixturevalue("landed")
+    pages = _use_pages(monkeypatch, size_rule=False)
+    src, tiles, ts, stack = scene
+    outs = [RENDERS[render](*scene, "cpu") for _ in range(3)]
+    assert sorted(pages.registered()) == sorted(
+        [(tiles.palettes.ctypes.data, tiles.palettes.nbytes), (stack.ctypes.data, stack.nbytes)])
+    assert src.ctypes.data not in pages.live
+    for i, got in enumerate(outs):
+        np.testing.assert_array_equal(got.items, want.items)
+        np.testing.assert_array_equal(got.image, want.image)
+        assert got.info["host_registers"] == (2 if i == 0 else 0)
+        assert got.info["h2d_pinned_bytes"] == tiles.palettes.nbytes + stack.nbytes
+        assert got.info["h2d_bytes"] == got.info["h2d_pinned_bytes"]  # the photo stays on the CPU
+    del scene, tiles, stack, outs, got, want
+    gc.collect()
+    assert not pages.live
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""K1 to K13 against their plain torch versions on an NVIDIA GPU, and the
-sharded routes of `parallel/` on a virtual mesh of the one card.
+"""K1 to K13 against their plain torch versions on an NVIDIA GPU, the
+sharded routes of `parallel/` on a virtual mesh of the one card, and the
+uploads of kept host arrays from registered memory.
 
 A CUDA kernel has no CPU mode, so these tests are marked `cuda` and skip
 on a host without a GPU. This file imports neither jax nor the JAX
@@ -8,11 +9,14 @@ package, so it also runs where jax is not installed:
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
 
-from emosaic_tpu_torch.ops import composite, composite_lab, distance, refill
+from emosaic_tpu_torch import monitor
+from emosaic_tpu_torch.ops import composite, composite_lab, copies, distance, refill
 from emosaic_tpu_torch.ops._kernels import (
     BAND_TRANSPOSE,
     COARSE_TOPCAP,
@@ -982,3 +986,81 @@ def test_k13_keys_feed_the_engine_as_the_pair_does(cuda):
     np.testing.assert_array_equal(got[1], want[1])
     assert got_stats["engine_entries"] == want_stats["engine_entries"]
     assert (got[0] >= 0).all()
+
+
+# ---------------------------------------------------------------------------
+# Uploads of kept host arrays (`ops/copies.py` `to_device_kept`)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,offset", [
+    (copies.PINNED_MIN_BYTES, 0), (3_000_017, 0), (3_000_017, 13), (64 << 20, 4096)])
+def test_kept_upload_from_registered_memory_is_byte_equal(cuda, n, offset):
+    """Page-aligned or not, a page multiple or not: the upload from the
+    array's registered memory is the plain upload's bytes; freeing the
+    array unregisters it."""
+    base = np.random.default_rng(n + offset).integers(0, 256, size=n + offset, dtype=np.uint8)
+    a = base[offset:]
+    info = {}
+    with monitor.record(info):
+        got = copies.to_device_kept(a, cuda)
+        again = copies.to_device_kept(a, cuda)
+    want = torch.from_numpy(a.copy()).to(cuda)
+    assert info["host_registers"] == 1
+    assert info["h2d_bytes"] == info["h2d_pinned_bytes"] == 2 * n
+    assert torch.from_numpy(a).is_pinned()
+    assert torch.equal(got, want) and torch.equal(again, want)
+    key = (a.ctypes.data, n)
+    assert key in copies._REGISTERED
+    del a, base
+    gc.collect()
+    assert key not in copies._REGISTERED
+
+
+def test_kept_upload_reads_a_write_in_place(cuda):
+    """Nothing of the contents is kept: an array written between two
+    uploads gives its new bytes, without a new registration."""
+    a = np.random.default_rng(24).integers(0, 256, size=(512, 1024, 3), dtype=np.uint8)
+    old = a.copy()
+    first = copies.to_device_kept(a, cuda)
+    a[::7, 3::5] ^= 0x5A
+    a[-1, -1] = 255 - a[-1, -1]
+    info = {}
+    with monitor.record(info):
+        second = copies.to_device_kept(a, cuda)
+    assert info["host_registers"] == 0 and info["h2d_pinned_bytes"] == a.nbytes
+    assert first.cpu().numpy().tobytes() == old.tobytes()
+    assert second.cpu().numpy().tobytes() == a.tobytes() != old.tobytes()
+
+
+@pytest.mark.parametrize("no_repeat", [False, True])
+def test_render_nto1_with_a_registered_library_matches_the_plain_render(cuda, no_repeat):
+    """512 tiles at mode 16: palettes of 393 KB and a stack of 1.57 MB, both
+    past the size rule, registered in the first render and uploaded from
+    registered memory in each; the card's renders match the CPU's plain
+    render item for item and byte for byte."""
+    from emosaic_tpu_torch.render import matched
+    from emosaic_tpu_torch.tiles.tileset import TileSet
+
+    rng = np.random.default_rng(512)
+    t, dim, ts = 512, 16, 32
+    bases = rng.integers(0, 256, size=(t, 1, 3))
+    pal = np.clip(bases + rng.integers(-12, 13, size=(t, dim * dim, 3)), 0, 255).astype(np.uint8)
+    stack = rng.integers(0, 256, size=(t, ts, ts, 3), dtype=np.uint8)
+    src = rng.integers(0, 256, size=(16 * dim, 12 * dim, 3), dtype=np.uint8)
+    tiles = TileSet.from_arrays(pal, [f"tiles/t{i}.jpg" for i in range(t)])
+
+    def render(device):
+        return matched.render_nto1(src, tiles, ts, device=device, stack=stack,
+                                   no_repeat=no_repeat, seed=0, log=lambda *a: None)
+
+    want = render("cpu")
+    for i in range(3):
+        got = render(cuda)
+        np.testing.assert_array_equal(got.items, want.items)
+        assert got.image.tobytes() == want.image.tobytes()
+        assert got.info["h2d_pinned_bytes"] == pal.nbytes + stack.nbytes
+        assert got.info["h2d_bytes"] == pal.nbytes + stack.nbytes + src.nbytes
+        assert got.info["host_registers"] == (2 if i == 0 else 0)
+    assert (pal.ctypes.data, pal.nbytes) in copies._REGISTERED
+    assert (stack.ctypes.data, stack.nbytes) in copies._REGISTERED

@@ -10,7 +10,7 @@ import pytest
 
 from emosaic_tpu.render import matched as jax_matched
 from emosaic_tpu.tiles.tileset import TileSet as JaxTileSet
-from emosaic_tpu_torch.ops.analysis import source_blocks
+from emosaic_tpu_torch.ops.analysis import source_blocks, to_device_u8
 from emosaic_tpu_torch.ops.distance import build_library
 from emosaic_tpu_torch.render import matched
 from emosaic_tpu_torch.tiles.tileset import TileSet
@@ -54,7 +54,7 @@ def test_match_blocks_dedup_route_matches_jax(rng):
     src = rng.integers(0, 256, size=(6, 2, 3), dtype=np.uint8)
     img = np.tile(src, (64, 64, 1))  # 384x128: 12288 blocks of 2x2, 3 distinct
     blocks = source_blocks(img, 2, device="cpu")
-    lib = build_library(matched.to_device_u8(ts.palettes, "cpu"))
+    lib = build_library(to_device_u8(ts.palettes, "cpu"))
     assert blocks.shape[0] > 8192
     d, r = matched.match_blocks(blocks, lib)
     jd, jr = jax_matched.match_blocks(blocks.numpy(), lib.numpy())
