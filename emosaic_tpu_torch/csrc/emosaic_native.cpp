@@ -5,8 +5,9 @@
 // returns 2), so an unexpected callback failure is raised by the caller
 // instead of being served by host scans; the global greedy also reads the
 // card's sorted u32 keys as they are (emosaic_greedy_global_keys); and both
-// engines report their host masked scans and the entries they read through
-// a trailing `stats` array.
+// engines report their host masked scans, the entries they read, their
+// refill callbacks, stale requeues and their own loop's seconds through a
+// trailing `stats` array (`Ctx::report`).
 //
 // The GPU owns every batched kernel (analysis, distance, top-k, composite);
 // what remains host-side is the inherently *sequential* state machine of
@@ -35,6 +36,12 @@
 namespace {
 
 constexpr int32_t kI32Max = INT32_MAX;
+
+using Clock = std::chrono::steady_clock;
+
+inline double seconds(Clock::time_point t0, Clock::time_point t1) {
+  return std::chrono::duration<double>(t1 - t0).count();
+}
 
 // Exact u8 L1 distance. With AVX2 this rides PSADBW (sum of absolute
 // byte differences, 32 bytes/instruction) — the refill scan over a
@@ -194,6 +201,14 @@ struct Ctx {
   // candidate entries read: each prefix or refill entry counted once, when
   // the engine moves past it, taken or skipped as used (through `stats`)
   int64_t n_entries = 0;
+  // refill callback events and the wall around each `cb` call; the
+  // seconds of refill_batch's own work (its scan of the streams for nearly
+  // dry blocks and its append of the returned entries); the global
+  // greedy's stale requeues (through `stats`)
+  int64_t n_cb = 0;
+  double cb_secs = 0.0;
+  double gather_secs = 0.0;
+  int64_t n_requeues = 0;
   // lazy per-row library sums for the refill's coarse bound
   std::vector<int64_t> row_sums;
 
@@ -208,6 +223,7 @@ struct Ctx {
   // got zero rows — those are marked dead: the mask only grows, so an
   // empty masked top-k can never become non-empty later).
   bool refill_batch(int64_t b) {
+    const auto t0 = Clock::now();
     std::vector<int64_t> ids;
     ids.push_back(b);
     const int64_t B = (int64_t)streams.size();
@@ -222,7 +238,12 @@ struct Ctx {
     const int64_t m = (int64_t)ids.size();
     std::vector<int32_t> od((size_t)(m * cb_k));
     std::vector<int32_t> orr((size_t)(m * cb_k));
+    const auto t1 = Clock::now();
     int32_t rc = cb(cb_user, ids.data(), m, used.data(), od.data(), orr.data());
+    const auto t2 = Clock::now();
+    ++n_cb;
+    cb_secs += seconds(t1, t2);
+    gather_secs += seconds(t0, t1);
     if (rc != 0) {
       if (rc < 0) aborted = true;
       return false;
@@ -238,6 +259,7 @@ struct Ctx {
       }
       if (added == 0) t.dead = true;
     }
+    gather_secs += seconds(t2, Clock::now());
     return true;
   }
 
@@ -298,29 +320,38 @@ struct Ctx {
       if (cb != nullptr && refill_batch(b)) continue;
       if (aborted) return false;
       std::vector<std::pair<int32_t, int32_t>> fresh;
-      auto t0 = std::chrono::steady_clock::now();
+      const auto t0 = Clock::now();
       if (row_sums.empty()) {
         row_sums.resize(L);
         for (int64_t r = 0; r < L; ++r) row_sums[r] = sum_u8(lib + r * D, D);
       }
       masked_topk(blocks + b * D, lib, L, D, used, row_sums, 256, fresh);
       ++n_refills;
-      refill_secs += std::chrono::duration<double>(
-                         std::chrono::steady_clock::now() - t0)
-                         .count();
+      refill_secs += seconds(t0, Clock::now());
       for (auto& f : fresh) s.extras.push_back(f);
       if (fresh.empty()) s.dead = true;
     }
     return false;
   }
 
-  // {host masked scans, their seconds, candidate entries read} into
-  // `stats`, when not null
-  void report(double* stats) const {
+  // The engine's counters into `stats` (double[8]), when not
+  // null: {host masked scans, their seconds, candidate entries read,
+  // refill callback events, their seconds, the gathers' seconds, stale
+  // requeues, the run's own seconds}. The last is the run's
+  // wall since `t0` less its callbacks, gathers and host scans: the
+  // engine's own loop. An engine without a heap or a callback leaves those
+  // slots 0.
+  void report(double* stats, Clock::time_point t0) const {
     if (stats == nullptr) return;
+    const double wall = seconds(t0, Clock::now());
     stats[0] = (double)n_refills;
     stats[1] = refill_secs;
     stats[2] = (double)n_entries;
+    stats[3] = (double)n_cb;
+    stats[4] = cb_secs;
+    stats[5] = gather_secs;
+    stats[6] = (double)n_requeues;
+    stats[7] = std::max(0.0, wall - cb_secs - gather_secs - refill_secs);
   }
 
   void advance(int64_t b) {
@@ -337,10 +368,11 @@ struct Ctx {
 // Shared body of the global-greedy exports: best-match-first priority
 // queue with mirror-pair exclusion (rendering.rs:346-392), tie-broken by
 // block index like the Python engine. `stats`, when not null, receives
-// {host masked scans, their seconds, candidate entries read}.
+// the engine's counters (`Ctx::report`).
 template <class Lists>
 int run_greedy_global(Ctx<Lists>& ctx, int64_t B, int64_t num_tiles,
                       int32_t* out_row, int32_t* out_dist, double* stats) {
+  const auto t0 = Clock::now();
   ctx.used.assign(ctx.L, 0);
   ctx.n_unused = ctx.L;
   ctx.streams.assign(B, Stream{});
@@ -369,6 +401,7 @@ int run_greedy_global(Ctx<Lists>& ctx, int64_t B, int64_t num_tiles,
       // again. Output-identical to cycling the heap per candidate — the
       // (dist, block) pop order is insertion-independent.
       heap.emplace(d, b);
+      ++ctx.n_requeues;
       continue;
     }
     ctx.advance(b);
@@ -381,7 +414,7 @@ int run_greedy_global(Ctx<Lists>& ctx, int64_t B, int64_t num_tiles,
     ctx.streams[b].assigned = true;
     if (ctx.n_unused == 0) break;  // nothing left to assign: skip the drain
   }
-  ctx.report(stats);
+  ctx.report(stats, t0);
   return 0;
 }
 
@@ -391,13 +424,14 @@ extern "C" {
 
 // In-render no-repeat (reference --no-repeat --greedy): fixed `order`,
 // row-granular exclusion (only the chosen orientation is removed).
-// `stats` is null or double[3], filled as run_greedy_global fills it.
-// Returns 0 on success.
+// `stats` is null or double[8], filled as run_greedy_global fills
+// it (no heap and no callback: those slots stay 0). Returns 0 on success.
 int emosaic_greedy_sequence(const int32_t* order, const int32_t* cand_d,
                             const int32_t* cand_r, int64_t B, int64_t K,
                             const uint8_t* blocks, const uint8_t* lib,
                             int64_t L, int64_t D, int32_t* out_row,
                             int32_t* out_dist, double* stats) {
+  const auto t0 = Clock::now();
   Ctx<PairLists> ctx{{cand_d, cand_r}, K, blocks, lib, L, D};
   ctx.used.assign(L, 0);
   ctx.n_unused = L;  // row-granular exclusion (no mirror pair here)
@@ -420,13 +454,13 @@ int emosaic_greedy_sequence(const int32_t* order, const int32_t* cand_d,
       }
     }
   }
-  ctx.report(stats);
+  ctx.report(stats, t0);
   return 0;
 }
 
 // Global greedy no-repeat (reference --no-repeat): best-match-first
 // priority queue, mirror-pair exclusion. Ties by block index (matches the
-// Python engine). `stats` is null or double[3] (see run_greedy_global).
+// Python engine). `stats` is null or double[8] (`Ctx::report`).
 // Returns 0 on success.
 int emosaic_greedy_global(const int32_t* cand_d, const int32_t* cand_r,
                           int64_t B, int64_t K, const uint8_t* blocks,

@@ -37,12 +37,17 @@ class span:
     `info["spans"][name]` of the record `record` opened in this context; with
     no record open it adds nothing. `s` is readable after exit either way.
     While a `torch.profiler` is recording, the span is also a range named
-    `emosaic:<name>` on the profiler's clock, nested in its parent span's.
+    `emosaic:<name>` on the profiler's clock, nested in its parent span's,
+    and, with a record open, appends `[name, start_us, end_us]` to the
+    record's `info["timeline"]` when it closes: the range's bounds in
+    microseconds of the trace's clock (Unix time, read beside the range's
+    own readings), so a child's entry comes before its parent's. With no
+    profiler there is no timeline.
     A span measures host time and never synchronises the device: a stage's
     device time is the trace's.
     """
 
-    __slots__ = ("name", "s", "_t0", "_child", "_range")
+    __slots__ = ("name", "s", "_t0", "_child", "_range", "_start_us")
 
     def __init__(self, name: str):
         self.name = name
@@ -58,6 +63,7 @@ class span:
             # as device work
             self._range = torch._C._profiler._RecordFunctionFast(f"emosaic:{self.name}")
             self._range.__enter__()
+            self._start_us = time.time_ns() / 1e3  # beside the range's own reading
         _OPEN.stack.append(self)
         self._child = 0.0
         self._t0 = time.perf_counter()
@@ -79,7 +85,18 @@ class span:
             e["self_s"] += self.s - self._child
             e["n"] += 1
         if self._range is not None:
-            self._range.__exit__(*exc)
+            if rec is None:
+                self._range.__exit__(*exc)
+            else:
+                # the range reads its end inside `__exit__`, where the
+                # profiler's own recording at times stalls for tens of
+                # microseconds on one side of that reading: the midpoint of
+                # the readings on either side halves the stall
+                close = self._range.__exit__
+                t_ns = time.time_ns()
+                close(*exc)
+                end_us = (t_ns + time.time_ns()) / 2e3
+                rec.setdefault("timeline", []).append([self.name, self._start_us, end_us])
         return False
 
 

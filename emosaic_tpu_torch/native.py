@@ -42,6 +42,12 @@ _REFILL_CFUNC = ctypes.CFUNCTYPE(
     ctypes.POINTER(ctypes.c_int32),
 )
 
+#: the engines' stats slots (emosaic_native.cpp `Ctx::report`), in order,
+#: as the keys `_engine_stats` writes; the counts among them
+STATS = ("refill_host_events", "refill_host_s", "engine_entries", "engine_cb_events",
+         "engine_cb_s", "engine_gather_s", "engine_requeues", "engine_loop_s")
+_COUNTS = {"refill_host_events", "engine_entries", "engine_cb_events", "engine_requeues"}
+
 
 def library_path() -> Path:
     return BUILD_DIR / _LIB_NAME
@@ -99,7 +105,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
     i64 = ctypes.c_int64
 
-    # the stats out-array: double[3] or None
+    # the stats out-array: double[len(STATS)] or None
     f64p = ctypes.POINTER(ctypes.c_double)
     lib.emosaic_greedy_sequence.argtypes = [
         i32p, i32p, i32p, i64, i64, u8p, u8p, i64, i64, i32p, i32p, f64p
@@ -133,10 +139,10 @@ def _c(a, dtype):
 
 
 def _engine_stats(out_stats, stats: dict | None) -> None:
-    """The engine's three stats slots into `stats`, when given."""
+    """The engine's stats slots into `stats` under the names of `STATS`,
+    when given."""
     if stats is not None:
-        stats.update(refill_host_events=int(out_stats[0]), refill_host_s=out_stats[1],
-                     engine_entries=int(out_stats[2]))
+        stats.update({k: int(v) if k in _COUNTS else v for k, v in zip(STATS, out_stats)})
 
 
 def greedy_sequence(
@@ -144,8 +150,10 @@ def greedy_sequence(
 ) -> tuple[np.ndarray, np.ndarray]:
     """Native in-render no-repeat assignment (see render/greedy.py).
     `stats`, when given, is filled as `greedy_global` fills it: the host
-    masked scans (`refill_host_events`), their seconds (`refill_host_s`)
-    and the candidate entries read (`engine_entries`)."""
+    masked scans (`refill_host_events`), their seconds (`refill_host_s`),
+    the candidate entries read (`engine_entries`) and the engine's own
+    seconds (`engine_loop_s`); it has no heap and no callback, so those
+    counters read 0."""
     nl = load()
     b, k = cand_d.shape
     order = _c(order, np.int32)
@@ -155,7 +163,7 @@ def greedy_sequence(
     lib = _c(lib, np.uint8)
     out_row = np.empty(b, dtype=np.int32)
     out_dist = np.empty(b, dtype=np.int32)
-    out_stats = (ctypes.c_double * 3)() if stats is not None else None
+    out_stats = (ctypes.c_double * len(STATS))() if stats is not None else None
     rc = nl.emosaic_greedy_sequence(
         order, cand_d, cand_r, b, k, blocks, lib,
         lib.shape[0], lib.shape[1], out_row, out_dist, out_stats,
@@ -188,13 +196,22 @@ def greedy_global(
     rows [M, cb_k] int32), ascending (distance, row), I32_MAX-padded (see
     ops/refill.DeviceRefiller). Output is bit-identical with or without
     the callback. An exception in the callback stops the engine and is
-    raised here. `stats`, when given, is filled from the engine's three
-    stats slots: its host masked scans (`refill_host_events`), their
+    raised here. `stats`, when given, is filled from the engine's stats
+    slots (`STATS`): its host masked scans (`refill_host_events`), their
     seconds (`refill_host_s`), and the candidate entries it read
     (`engine_entries`): each entry of the lists and of the refills counted
     once, when the engine moves past it, taken or skipped as used. At
     least one per assigned block; its mean per block is how deep the
-    greedy goes into the lists.
+    greedy goes into the lists. Then the refill callback's calls
+    (`engine_cb_events`) and their seconds as the engine sees them, the
+    crossing into Python included (`engine_cb_s`); the seconds of the
+    engine's batching around each call, its scan of the blocks for nearly
+    dry ones and its append of what came back (`engine_gather_s`); the
+    heap's stale requeues (`engine_requeues`: a block popped at a key
+    below its true next distance and pushed again at that distance); and
+    the engine's own seconds, its whole call less the callbacks, gathers
+    and host scans (`engine_loop_s`). The output is the
+    same with or without `stats`.
 
     With `bits_c`, `cand_d` holds the card's sorted lists as they come to
     the host instead, u32 keys [B, K] (dist << bits_c) | row
@@ -214,7 +231,7 @@ def greedy_global(
     lib = _c(lib, np.uint8)
     out_row = np.empty(b, dtype=np.int32)
     out_dist = np.empty(b, dtype=np.int32)
-    out_stats = (ctypes.c_double * 3)() if stats is not None else None
+    out_stats = (ctypes.c_double * len(STATS))() if stats is not None else None
     if bits_c is not None:
         rc = nl.emosaic_greedy_global_keys(
             cand_d, b, k, bits_c, blocks, lib,

@@ -19,6 +19,8 @@ each event at its own shape.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -201,6 +203,12 @@ class DeviceRefiller:
     them on K10's stripe (`_refill_topk`). A library past
     `distance.DEVICE_LIB_BYTES_MAX` is refused; `refiller_for` leaves such
     a render on the engine's host scan.
+
+    `wait_s` adds up the seconds the calls spend waiting on the device,
+    one reading a device call: K12's stream synchronisation, or the
+    stripe route's `_refill_topk`, whose copies to the host wait on the
+    card (on a CPU tensor, the plain version's work). The rest of a call
+    is the host's.
     """
 
     def __init__(self, blocks, lib, *, k: int = 256):
@@ -226,11 +234,13 @@ class DeviceRefiller:
             w = 16 * self._plan[0]
             self._blocks, self._lib = _pad_words(self._blocks, w, 16), _pad_words(self._lib, w, 16)
         #: device calls, the blocks they covered, the unused rows they
-        #: scored, and the calls K12 served
+        #: scored, the calls K12 served, and their seconds waiting on the
+        #: device
         self.n_calls = 0
         self.n_blocks = 0
         self.n_rows = 0
         self.n_fused = 0
+        self.wait_s = 0.0
         self._cap = 0  # K12's staged blocks a call (`_stage`, at the first call)
 
     def _stage(self, m: int) -> None:
@@ -251,8 +261,10 @@ class DeviceRefiller:
     def _fused(self, ids: np.ndarray, used: np.ndarray):
         m = len(ids)
         if self.device.type != "cuda":  # the plain version
+            t0 = time.perf_counter()
             out = masked_refill(self._blocks, torch.from_numpy(np.asarray(ids, np.int64)),
                                 self._lib, torch.from_numpy(used.astype(np.uint8)), self.k)
+            self.wait_s += time.perf_counter() - t0
             out = out.numpy()
         else:
             if m > self._cap:
@@ -265,7 +277,9 @@ class DeviceRefiller:
             _k12_launch(self._blocks, self._lib, up + self._off, up, self._work, m, self.k,
                         self._plan, up=(self._up_h.data_ptr(), up, n),
                         down=self._down_h.data_ptr())
+            t0 = time.perf_counter()
             torch.cuda.current_stream(self.device).synchronize()
+            self.wait_s += time.perf_counter() - t0
             out = self._down_h[: 2 * m * self.k].numpy()
         out = out.reshape(2, m, self.k)
         return out[0].copy(), out[1].copy()
@@ -292,7 +306,9 @@ class DeviceRefiller:
             ids = torch.from_numpy(np.asarray(ids, dtype=np.int64))
             for lo in range(0, m, self.max_batch):  # normally a single chunk
                 chunk = ids[lo : lo + self.max_batch].to(self.device)
+                t0 = time.perf_counter()
                 dd, rr = _refill_topk(self._blocks, chunk, sub, unused_dev, kk)
+                self.wait_s += time.perf_counter() - t0
                 self.n_calls += 1
                 self.n_blocks += len(chunk)
                 self.n_rows += unused.size

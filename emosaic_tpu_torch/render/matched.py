@@ -221,9 +221,10 @@ def render_nto1(
     the match of `match_blocks` records itself under `match` (its `stats`);
     with `no_repeat`, also the spans `sequence.scoring` (the top-k lists),
     `sequence.to_host` and `sequence.engine` under `render.match`, and the
-    engine's counters: its host masked scans (`refill_host_events`), their
-    seconds (`refill_host_s`) and the candidate entries it read
-    (`engine_entries`)."""
+    engine's counters (`native.STATS`): its host masked scans
+    (`refill_host_events`), their seconds (`refill_host_s`), the candidate
+    entries it read (`engine_entries`) and, from the native engine, its own
+    seconds (`engine_loop_s`)."""
     if no_repeat and randomize is not None:
         raise ValueError(
             "no_repeat + randomize is unsupported (the reference deadlocks "

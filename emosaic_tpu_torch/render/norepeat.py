@@ -77,10 +77,12 @@ def render_nto1_no_repeat(
     bytes, its sort, `k13` on the card or `plain`, the sort's key bytes,
     and `lists`: `packed` where the native engine read the sorted keys as
     they are, else `pair`), the assignment engine with its refill counters
-    and the candidate entries the native engine read (`engine_entries`), the
-    seconds of scoring and assignment, and the render's
-    stage spans (`monitor.span`). `mesh` (`parallel.make_mesh`) shards the
-    exact scoring over it."""
+    (the device refill's calls, blocks, K12's calls and their seconds
+    waiting on the card, `refill_wait_s`) and the native engine's own
+    (`native.STATS`: the candidate entries it read, `engine_entries`, its
+    callbacks, gathers, stale requeues and loop), the seconds of scoring and
+    assignment, and the render's stage spans (`monitor.span`). `mesh`
+    (`parallel.make_mesh`) shards the exact scoring over it."""
     if scorer not in ("exact", "hybrid"):
         # fail loud: a typo would otherwise silently run the exact path
         raise ValueError(f"scorer must be 'exact' or 'hybrid', got {scorer!r}")
@@ -174,8 +176,8 @@ def render_nto1_no_repeat(
                 info["engine"] = "native"
                 info["refill_events"] = refiller.n_calls if refiller else 0
                 info["refill_blocks"] = refiller.n_blocks if refiller else 0
-                info["refill_rows"] = refiller.n_rows if refiller else 0
                 info["refill_fused_events"] = refiller.n_fused if refiller else 0
+                info["refill_wait_s"] = refiller.wait_s if refiller else 0.0
                 if refiller is not None and refiller.n_calls:
                     log(f"   device refill events: {refiller.n_calls} ({refiller.n_fused} on K12,"
                         f" {100 * refiller.n_fused / refiller.n_calls:.1f}%)")

@@ -10,6 +10,7 @@ package, so it also runs where jax is not installed:
 """
 
 import gc
+import itertools
 
 import numpy as np
 import pytest
@@ -864,6 +865,50 @@ def test_k12_matches_plain_at_edges(cuda, l, d):
         one = torch.ones(l, dtype=torch.uint8, device=cuda)
         one[l // 2] = 0
         _k12_check(blocks, ids, lib, one, 256)
+
+
+def test_refiller_wait_is_k12s_synchronisation(cuda, monkeypatch):
+    """On the card a K12 call's `wait_s` is its stream's synchronisation:
+    above 0 on the real clock, and one reading of the clock's pair a call
+    on a clock that moves one second a reading."""
+    rng = np.random.default_rng(3)
+    lib, blocks = _u8(rng, (1034, 48), cuda), _u8(rng, (70, 48), cuda)
+    used = (rng.random(1034) < 0.5).astype(np.uint8)
+    dev = refill.DeviceRefiller(blocks, lib, k=16)
+    dev(np.arange(4), used)
+    assert dev.wait_s > 0.0 and dev.n_fused == dev.n_calls == 1
+    ticks = itertools.count()
+    monkeypatch.setattr(refill.time, "perf_counter", lambda: float(next(ticks)))
+    dev = refill.DeviceRefiller(blocks, lib, k=16)
+    for m in (1, 3, 5):
+        dev(np.arange(m), used)
+    assert dev.wait_s == dev.n_fused == dev.n_calls == 3
+
+
+def test_the_timeline_lies_on_the_ranges_under_the_cards_profiler(cuda):
+    """Under a profiler that traces the card, each span's `info["timeline"]`
+    entry lies within 20 us of its `emosaic:` range, on the clock of the
+    device's events."""
+    info = {}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    x = torch.ones(1 << 20, device=cuda)
+    with torch.profiler.profile(activities=acts) as prof:
+        with monitor.record(info):
+            for _ in range(20):
+                with monitor.span("a"):
+                    with monitor.span("b"):
+                        x.sum().item()
+    ranges = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("emosaic:") and e.device_type() != torch.autograd.DeviceType.CUDA:
+            ranges.setdefault(e.name()[8:], []).append((e.start_ns() / 1e3, e.end_ns() / 1e3))
+    tl = info["timeline"]
+    for name in ("render", "a", "b"):
+        mine = sorted(e[1:3] for e in tl if e[0] == name)
+        theirs = sorted(ranges[name])
+        assert len(mine) == len(theirs)
+        for (s0, s1), (h0, h1) in zip(mine, theirs):
+            assert abs(s0 - h0) <= 20 and abs(s1 - h1) <= 20, (name, s0 - h0, s1 - h1)
 
 
 def _k13_check(dist, dmax):

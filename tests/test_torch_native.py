@@ -361,7 +361,8 @@ def test_greedy_global_stats_leave_the_rows_alone(rng, engine, refiller):
     got = native.greedy_global(cd, cr, blocks, lib, t, stats=stats, **kw)
     np.testing.assert_array_equal(got[0], base[0])
     np.testing.assert_array_equal(got[1], base[1])
-    assert set(stats) == {"refill_host_events", "refill_host_s", "engine_entries"}
+    assert set(stats) == set(native.STATS)
+    assert {"refill_host_events", "refill_host_s", "engine_entries"} <= set(stats)
     assert stats["engine_entries"] >= np.count_nonzero(got[0] >= 0)
     if refiller is None:
         assert stats["refill_host_events"] > 0 and stats["refill_host_s"] > 0
